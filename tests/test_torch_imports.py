@@ -1,0 +1,57 @@
+"""The PyTorch port imports nothing of JAX or of the JAX package, and its
+entry points do not fall back to the CPU when no device is named."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+sys.modules["jax"] = None
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "safelife_tpu")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import safelife_torch
+names = [m.name for m in pkgutil.walk_packages(
+    safelife_torch.__path__, "safelife_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 13, proc.stdout
+
+
+def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
+    from safelife_torch.env.env import BatchedSafeLifeEnv
+    from safelife_torch.levels import loader
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loader.load_bank("benchmarks/v1.0/append-still")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedSafeLifeEnv()
+    assert BatchedSafeLifeEnv(device="cpu").device.type == "cpu"
