@@ -1,10 +1,24 @@
 // Device functions shared by the SafeLife kernels: the cell bit layout
-// (safelife_torch/cells.py), the spawnless CA rule and the point table.
+// (safelife_torch/cells.py), the CA rules and the point table.
 //
 // Boards are (H, W, B) uint16 with the environment batch innermost, so the
 // threads of a warp, one environment each, read cell (r, c) of 32
 // neighbouring environments in one coalesced 64-byte access.  All
 // arithmetic is int32, as in the plain PyTorch versions.
+//
+// The rule of a cell needs counts over its 3x3 torus neighbourhood.  Each
+// rule below is a struct with a count Word, pack(cell) -> Word, and
+// rule(cell, 3x3 sum of Words, spawn) -> new cell, where spawn() is asked
+// only where a spawn could fire (a dead cell, not frozen, not inhibited,
+// not born, beside a spawner), so a kernel draws random bits only there.
+//   SpawnlessRule  boards without spawners (life_pallas._advance_spawnless);
+//   SimpleRule     certified simple goal boards (_advance_goals_simple);
+//   FullRule<PI>   any board, spawners included (_advance_core, and with
+//                  PI = false _core_full on spawn-simple goal boards, whose
+//                  PRESERVING/INHIBITING bits are certified absent).
+// The TPU packs counts to save VMEM passes; these packings are chosen for
+// the card and are equal to the plain versions on every board the bank
+// flags certify (most of them on any board).
 #pragma once
 
 #include <cstdint>
@@ -18,6 +32,7 @@ constexpr int DESTRUCTIBLE = 1 << 3;
 constexpr int FROZEN = 1 << 4;
 constexpr int PRESERVING = 1 << 5;
 constexpr int INHIBITING = 1 << 6;
+constexpr int SPAWNING = 1 << 7;
 constexpr int EXIT = 1 << 8;
 constexpr int COLOR_BIT = 9;
 constexpr int COLOR_R = 1 << 9;
@@ -34,64 +49,173 @@ __device__ __forceinline__ int floor_mod(int x, int n) {
   return r < 0 ? r + n : r;
 }
 
-// Spawnless full-rule board -> one 28-bit count word of 4-bit fields:
-// alive@0, r@4, g@8, b@12, destructible@16, preserving@20, inhibiting@24
-// (life_pallas._pack_full4).  A 3x3 sum of these words never carries
-// between fields (counts <= 9).
-__device__ __forceinline__ int pack_full4(int cell) {
-  const int alive = cell & 1;
-  const int spread = (((cell >> COLOR_BIT) & 7) * 0x49) & 0x111;
-  const int has_d = ((cell >> 3) | (cell >> 8)) & 1;
-  const int pi2 = (cell >> 5) & 3;
-  return alive + ((spread * alive) << 4) + ((has_d * alive) << 16) +
-         ((pi2 * 0x900000) & 0x1100000);
-}
-
-// The CA rule for one cell of a spawnless board given the 3x3 sum of its
-// packed words (life_pallas._extract4 and _core_full with spawn=None).
-__device__ __forceinline__ int spawnless_rule(int cell, int counts) {
-  const int n_alive = counts & 15;
-  int m = (counts >> 1) & ((7 << 4) | (7 << 8) | (7 << 12) | (7 << 16));
-  m |= m >> 2;
-  m |= m >> 1;
-  const int t = m & ((1 << 4) | (1 << 8) | (1 << 12));
-  const int inherit = ((t >> 3) * 0x124) & COLORS;
-  const int born_d = (m >> 13) & DESTRUCTIBLE;
-  const bool preserved = ((counts >> 20) & 15) != 0;
-  const bool inhibited = ((counts >> 24) & 15) != 0;
-  const bool frozen = (cell & FROZEN) != 0;
-  const bool three = n_alive == 3;
-  if (cell & 1) {
-    return (frozen || preserved || three || n_alive == 4) ? cell : 0;
+// Spawnless full rule: one 28-bit count word of 4-bit fields alive@0, r@4,
+// g@8, b@12, destructible@16, preserving@20, inhibiting@24
+// (life_pallas._pack_full4, _extract4).  Counts <= 9 never carry.
+struct SpawnlessRule {
+  using Word = int;
+  static __device__ __forceinline__ Word pack(int cell) {
+    const int alive = cell & 1;
+    const int spread = (((cell >> COLOR_BIT) & 7) * 0x49) & 0x111;
+    const int has_d = ((cell >> 3) | (cell >> 8)) & 1;
+    const int pi2 = (cell >> 5) & 3;
+    return alive + ((spread * alive) << 4) + ((has_d * alive) << 16) +
+           ((pi2 * 0x900000) & 0x1100000);
   }
-  return (three && !frozen && !inhibited) ? (ALIVE | inherit | born_d) : cell;
+  template <class Spawn>
+  static __device__ __forceinline__ int rule(int cell, Word counts, Spawn) {
+    const int n_alive = counts & 15;
+    int m = (counts >> 1) & ((7 << 4) | (7 << 8) | (7 << 12) | (7 << 16));
+    m |= m >> 2;
+    m |= m >> 1;
+    const int t = m & ((1 << 4) | (1 << 8) | (1 << 12));
+    const int inherit = ((t >> 3) * 0x124) & COLORS;
+    const int born_d = (m >> 13) & DESTRUCTIBLE;
+    const bool preserved = ((counts >> 20) & 15) != 0;
+    const bool inhibited = ((counts >> 24) & 15) != 0;
+    const bool frozen = (cell & FROZEN) != 0;
+    const bool three = n_alive == 3;
+    if (cell & 1) {
+      return (frozen || preserved || three || n_alive == 4) ? cell : 0;
+    }
+    return (three && !frozen && !inhibited) ? (ALIVE | inherit | born_d) : cell;
+  }
+};
+
+// Certified simple goal boards: no PRESERVING, INHIBITING, SPAWNING or
+// EXIT, so nothing is preserved, inhibited or spawned and the destructible
+// count reads only the DESTRUCTIBLE bit (life_pallas._advance_goals_simple,
+// its fold included).
+struct SimpleRule {
+  using Word = int;
+  static __device__ __forceinline__ Word pack(int cell) {
+    const int alive = cell & 1;
+    const int spread = (((cell >> COLOR_BIT) & 7) * 0x49) & 0x111;
+    return alive + ((spread * alive) << 4) + (((cell >> 3) & alive) << 16);
+  }
+  template <class Spawn>
+  static __device__ __forceinline__ int rule(int cell, Word counts, Spawn) {
+    const int n_alive = counts & 15;
+    int m = (counts >> 1) & ((7 << 4) | (7 << 8) | (7 << 12) | (7 << 16));
+    m |= m >> 1;
+    m |= m >> 1;
+    const int t = m & ((1 << 4) | (1 << 8) | (1 << 12));
+    const int inherit = ((t >> 3) * 0x124) & COLORS;
+    const bool frozen = (cell & FROZEN) != 0;
+    const bool three = n_alive == 3;
+    if (cell & 1) return (frozen || three || n_alive == 4) ? cell : 0;
+    return (three && !frozen) ? (ALIVE | inherit | ((m >> 13) & DESTRUCTIBLE))
+                              : cell;
+  }
+};
+
+// Full rule with spawners: two 32-bit words of 8-bit fields,
+//   lo: alive@0, r@8, g@16, b@24 (colour weights: live 1, spawner 2, <= 27)
+//   hi: destructible@0, preserving@8, inhibiting@16, spawning@24.
+// With PI = false the preserving and inhibiting fields are left out.
+struct Counts2 {
+  uint32_t lo, hi;
+};
+__device__ __forceinline__ Counts2 operator+(Counts2 a, Counts2 b) {
+  return {a.lo + b.lo, a.hi + b.hi};
 }
 
-// Advance row r of environment b of a spawnless board and hand each new
-// cell to emit(c, new_cell).  Column sums of packed words slide along the
-// row, so each cell's word is packed three times instead of nine.
-template <class Emit>
-__device__ __forceinline__ void advance_row_spawnless(
-    const uint16_t* __restrict__ board, int r, int H, int W, long long B,
-    long long b, Emit emit) {
-  const long long row = static_cast<long long>(W) * B;
-  const uint16_t* up = board + ((r + H - 1) % H) * row + b;
-  const uint16_t* mid = board + r * row + b;
-  const uint16_t* dn = board + ((r + 1) % H) * row + b;
-  auto column = [&](int c) {
+template <bool PI>
+struct FullRule {
+  using Word = Counts2;
+  static __device__ __forceinline__ Word pack(int cell) {
+    const uint32_t alive = cell & 1;
+    const uint32_t spawning = (cell >> 7) & 1;
+    const uint32_t cw = alive + 2 * spawning;
+    const uint32_t c = static_cast<uint32_t>(cell) >> COLOR_BIT;
+    const uint32_t spread = ((c & 1) << 8) | ((c & 2) << 15) | ((c & 4) << 22);
+    const uint32_t has_d = ((cell >> 3) | (cell >> 8)) & 1;
+    uint32_t hi = (has_d & alive) | (spawning << 24);
+    if (PI) hi |= (((cell >> 5) & 1) << 8) | (((cell >> 6) & 1) << 16);
+    return {alive | spread * cw, hi};
+  }
+  template <class Spawn>
+  static __device__ __forceinline__ int rule(int cell, Word n, Spawn spawn) {
+    const int n_alive = n.lo & 255;
+    const bool frozen = (cell & FROZEN) != 0;
+    const bool preserved = PI && ((n.hi >> 8) & 255) != 0;
+    const bool inhibited = PI && ((n.hi >> 16) & 255) != 0;
+    if (cell & 1) {
+      return (frozen || preserved || n_alive == 3 || n_alive == 4) ? cell : 0;
+    }
+    const int inherit = (((n.lo >> 8) & 255) >= 2 ? COLOR_R : 0) |
+                        (((n.lo >> 16) & 255) >= 2 ? COLOR_R << 1 : 0) |
+                        ((n.lo >> 24) >= 2 ? COLOR_B : 0);
+    if (frozen || inhibited) return cell;
+    if (n_alive == 3) {
+      return ALIVE | inherit | ((n.hi & 255) >= 2 ? DESTRUCTIBLE : 0);
+    }
+    if ((n.hi >> 24) != 0 && spawn()) return ALIVE | DESTRUCTIBLE | inherit;
+    return cell;
+  }
+};
+
+// Goal boards that never change: no stencil, the cell as it is.
+struct StaticRule {};
+
+// Slides the 3x3 sum of Rule's words along row r of environment b: column
+// sums of three rows move along the row, so each cell is packed three
+// times instead of nine.  advance(c, spawn) returns the new cell at
+// column c; call it for c = 0, 1, ..., W - 1 in order.
+template <class Rule>
+struct RowStream {
+  using Word = typename Rule::Word;
+  const uint16_t* up;
+  const uint16_t* mid;
+  const uint16_t* dn;
+  long long B;
+  int W;
+  Word first, prev, cur;
+
+  __device__ __forceinline__ RowStream(const uint16_t* __restrict__ board,
+                                       int r, int H, int W_, long long B_,
+                                       long long b)
+      : B(B_), W(W_) {
+    const long long row = static_cast<long long>(W) * B;
+    up = board + ((r + H - 1) % H) * row + b;
+    mid = board + r * row + b;
+    dn = board + ((r + 1) % H) * row + b;
+    first = column(0);
+    prev = column(W - 1);
+    cur = first;
+  }
+  __device__ __forceinline__ Word column(int c) const {
     const long long o = c * B;
-    return pack_full4(up[o]) + pack_full4(mid[o]) + pack_full4(dn[o]);
-  };
-  const int first = column(0);
-  int prev = column(W - 1);
-  int cur = first;
-  for (int c = 0; c < W; ++c) {
-    const int next = (c + 1 < W) ? column(c + 1) : first;
-    emit(c, spawnless_rule(mid[c * B], prev + cur + next));
+    return Rule::pack(up[o]) + Rule::pack(mid[o]) + Rule::pack(dn[o]);
+  }
+  template <class Spawn>
+  __device__ __forceinline__ int advance(int c, Spawn spawn) {
+    const Word next = (c + 1 < W) ? column(c + 1) : first;
+    const int out = Rule::rule(mid[c * B], prev + cur + next, spawn);
     prev = cur;
     cur = next;
+    return out;
   }
-}
+};
+
+template <>
+struct RowStream<StaticRule> {
+  const uint16_t* mid;
+  long long B;
+  __device__ __forceinline__ RowStream(const uint16_t* __restrict__ board,
+                                       int r, int, int W, long long B_,
+                                       long long b)
+      : mid(board + r * static_cast<long long>(W) * B_ + b), B(B_) {}
+  template <class Spawn>
+  __device__ __forceinline__ int advance(int c, Spawn) {
+    return mid[c * B];
+  }
+};
+
+// A spawn functor for rules and boards that never spawn.
+struct NoSpawn {
+  __device__ __forceinline__ bool operator()() const { return false; }
+};
 
 // point_table[gc, cc]: each goal-color row packed into one int32 as
 // value + 3 in bits [4c, 4c + 4) (env_step_pallas._PACKED_ROWS), picked

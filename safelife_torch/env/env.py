@@ -189,9 +189,10 @@ class BatchedSafeLifeEnv:
         return idx, self._fresh_state_fields(bank, idx)
 
     def fused_inputs(self, state: EnvState, bank: LevelBank, action,
-                     fresh=None):
+                     fresh=None, seed=None):
         """Keyword arguments of ``env_step_kernels.fused_step`` for this
-        step; ``fresh`` is the fresh levels' fields (auto-reset only)."""
+        step; ``fresh`` is the fresh levels' fields (auto-reset only),
+        ``seed`` the step's spawn seed (see :meth:`step_seed`)."""
         cfg = self.config
         ce0 = scoring.can_exit(state.perf_completed, state.perf_possible,
                                state.min_performance)
@@ -203,7 +204,7 @@ class BatchedSafeLifeEnv:
             orientation=state.orientation, game_over=state.game_over,
             can_exit0=ce0, baseline_score=state.baseline_score,
             spawn_prob=state.spawn_prob,
-            min_performance=state.min_performance,
+            min_performance=state.min_performance, seed=seed,
             static_goals=bank.static_goals, spawnless=bank.spawnless,
             simple_goals=bank.simple_goals,
             spawn_simple_goals=bank.spawn_simple_goals,
@@ -215,16 +216,24 @@ class BatchedSafeLifeEnv:
             exit_valid=state.exit_valid, exit_gcol=state.exit_gcol,
             remove_white_goals=cfg.remove_white_goals)
 
+    def step_seed(self, generator=None):
+        """The spawn seed of one kernel step: an int32 tensor of one
+        element in ``[0, 2**31 - 1)`` on the device, drawn from
+        ``generator`` (the kernels read it there; the host never does)."""
+        return torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=self.device, dtype=torch.int32)
+
     def step(self, state: EnvState, bank: LevelBank, action,
              generator: Optional[torch.Generator] = None,
              spawn_board=None, spawn_goals=None, fresh_levels=None):
         """Advance all B environments one step.
 
-        ``spawn_board`` / ``spawn_goals`` replace the spawn draws with
-        given boolean fields.  ``fresh_levels`` (from
-        :meth:`sample_fresh_levels` or :meth:`fresh_levels`) supplies the
-        levels of this step's auto-resets; without it they are drawn from
-        ``generator``.
+        ``generator`` draws the spawns: the kernels' Philox seed, or the
+        plain path's spawn fields.  ``spawn_board`` / ``spawn_goals``
+        replace the spawn draws with given boolean fields (plain path).
+        ``fresh_levels`` (from :meth:`sample_fresh_levels` or
+        :meth:`fresh_levels`) supplies the levels of this step's
+        auto-resets; without it they are drawn from ``generator``.
         """
         cfg = self.config
         self._check_device(state.board, bank.board)
@@ -239,8 +248,8 @@ class BatchedSafeLifeEnv:
             if cfg.auto_reset:
                 idx, fresh = self._fresh_for_step(state, bank, generator,
                                                   fresh_levels)
-            out = env_step_kernels.fused_step(
-                **self.fused_inputs(state, bank, action, fresh))
+            out = env_step_kernels.fused_step(**self.fused_inputs(
+                state, bank, action, fresh, self.step_seed(generator)))
             (board, goals, agent_row, agent_col, orientation, exited,
              points, comp1, poss1, ce1, effect_count) = out[:11]
             if cfg.auto_reset and cfg.compute_obs:

@@ -34,13 +34,18 @@ _I = ctypes.c_int
 SIGNATURES = {
     "life_kernels": {
         "sl_advance_spawnless": (_P, _P, _I, _I, _I, _P),
+        "sl_advance_with_field": (_P, _P, _P, _I, _I, _I, _P),
+        "sl_advance_simple": (_P, _P, _I, _I, _I, _P),
+        "sl_advance_pair_fields": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "sl_advance_both": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "env_step_kernels": {
         "sl_action": (_P, _P, _P, _P, _I, _I, _I, _P),
-        "sl_advance": (_P, _P, _P, _P,             # si, sf, act_i, obs_i
+        "sl_advance": (_P, _P, _P, _P, _P,         # seed, si, sf, act_i, obs_i
                        _P, _P, _P, _P, _P, _P,     # board, goals, init, fresh
                        _P, _P, _P, _P, _P,         # outputs
-                       _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                       _I, _I, _I, _I, _I, _I, _I, _I,  # H .. remove_white
+                       _I, _I, _P),                # rule, draw, stream
     },
 }
 

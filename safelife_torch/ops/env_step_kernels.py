@@ -16,17 +16,29 @@ on tensors.  :func:`fused_step` launches the kernels on CUDA tensors and
 runs the plain versions on CPU tensors; :func:`fused_step_plain` runs the
 plain versions on any device, as the reference the kernels are held to.
 
-Only the CA rule of banks with static goals and no spawners is ported;
-the other rules raise :class:`NotImplementedError`.
+K2/K3 inline the CA rule that the bank's flags pick (:data:`RULES`, with
+the precedence of ``env_step_pallas.py:317-335``) and the spawn draw of
+:mod:`.rng` (:data:`DRAWS`: none on spawnless banks, the paired 16-bit
+draw where the goals spawn too, 24 bits for the board otherwise).
 """
 
 import torch
 
+from .. import bits16
 from .. import cells as C
-from . import _build
+from . import _build, rng
 from .agent import gather_cells, masked_set
-from .life_kernels import _advance_spawnless
+from .life_kernels import (_advance_block, _advance_pair,
+                           _advance_pair_spawnsimple,
+                           _advance_with_simple_goals)
 from .obs import combine_board_goals, exit_offsets, put_exits, recenter
+
+# The CA rules of K2/K3 (csrc/env_step_kernels.cu enum Rule, in order):
+# static goals without and with spawners, certified simple goals,
+# spawn-simple goals, and the general pair.
+RULES = ("static_spawnless", "static", "simple", "spawn_simple", "general")
+# The spawn draws (csrc/philox.cuh enum Draw, in order).
+DRAWS = ("none", "u24", "pair")
 
 _DR = (-1, 0, 1, 0)
 _DC = (0, 1, 0, -1)
@@ -147,21 +159,61 @@ def apply_action(si, board):
 # K2/K3: advance, scoring, exit recolour, side effects, fold, view
 # ---------------------------------------------------------------------------
 
+def pick_rule(static_goals, spawnless, simple_goals, spawn_simple_goals):
+    """The CA rule of K2/K3 for the bank's flags, with the precedence of
+    ``env_step_pallas.py:317-335``: static, simple, spawn-simple, general."""
+    if static_goals:
+        return "static_spawnless" if spawnless else "static"
+    if simple_goals:
+        return "simple"
+    return "spawn_simple" if spawn_simple_goals else "general"
+
+
+def pick_draw(rule, spawnless):
+    """The spawn draw of ``rule`` (``env_step_pallas.py:303-316``): none on
+    a spawnless bank, one word split between board and goals where the
+    goals spawn too, 24 bits for the board otherwise."""
+    if spawnless:
+        return "none"
+    return "pair" if rule in ("spawn_simple", "general") else "u24"
+
+
+def _advance_rule(board, goals, rule, draw, seed, spawn_prob):
+    """The CA advance of K2/K3 on int32 boards: ``(board', goals')``, the
+    goals unchanged under the static rules."""
+    spawn_b = spawn_g = None
+    if draw == "u24":
+        spawn_b = rng.spawn_field24(seed, spawn_prob, board.shape)
+    elif draw == "pair":
+        spawn_b, spawn_g = rng.spawn_field_pair(seed, spawn_prob, board.shape)
+    if rule in ("static_spawnless", "static"):
+        return _advance_block(board, spawn_b), goals
+    if rule == "simple":
+        return _advance_with_simple_goals(board, spawn_b, goals)
+    if rule == "spawn_simple":
+        return _advance_pair_spawnsimple(board, spawn_b, goals, spawn_g)
+    return _advance_pair(board, spawn_b, goals, spawn_g)
+
+
 def advance_plain(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
-                  time_limit, obs_view, remove_white_goals=True):
+                  time_limit, obs_view, remove_white_goals=True,
+                  rule="static_spawnless", draw="none", seed=None):
     """The plain version of K2 (``time_limit > 0``) and K3.
 
     ``fresh`` is the (board, goals, init_board) of the fresh levels (fold
-    only); ``obs_view`` (vh, vw) asks for the packed view (fold only).
-    Returns ``(board', goals', init_board' or None, view or None, out_i)``
-    with out_i rows points, perf_completed, perf_possible, can_exit1,
-    side-effect count.
+    only); ``obs_view`` (vh, vw) asks for the packed view (fold only);
+    ``rule`` and ``draw`` are from :func:`pick_rule` and :func:`pick_draw`,
+    ``seed`` the step's int32 seed tensor (read where ``draw`` is not
+    "none").  Returns ``(board', goals', init_board' or None, view or None,
+    out_i)`` with out_i rows points, perf_completed, perf_possible,
+    can_exit1, side-effect count.
     """
-    board = _advance_spawnless(board1.to(torch.int32))
-    goals = goals.to(torch.int32)
+    board, goals = _advance_rule(board1.to(torch.int32), goals.to(torch.int32),
+                                rule, draw, seed, sf[0])
+    dynamic = rule not in ("static_spawnless", "static")
     zero = torch.zeros_like(board)
 
-    # ---- scoring -----------------------------------------------------------
+    # ---- scoring (on the advanced goals) -----------------------------------
     alive = (board & 1) != 0
     gc = (goals >> C.COLOR_BIT) & 7
     pts_cell = _pts_cell(gc, (board >> C.COLOR_BIT) & 7)
@@ -170,8 +222,11 @@ def advance_plain(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
     score = torch.where(alive & ~frozen_immov, torch.sign(pts_cell),
                         zero).sum((0, 1), dtype=torch.int32)
     comp = score - si[6]
-    # Static goals: the possible score is the live per-env value.
-    poss = si[8]
+    if dynamic:
+        poss = ((gc != 0) & (gc != 7)).sum((0, 1), dtype=torch.int32) - si[6]
+    else:
+        # Static goals: the possible score is the live per-env value.
+        poss = si[8]
 
     # ---- exit recolour -----------------------------------------------------
     min_perf = sf[1]
@@ -209,16 +264,17 @@ def advance_plain(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
     view = None
     if obs_view is not None:
         view = _view_plain(final_b, final_g, done, act_i, obs_i, ce1,
-                           obs_view, remove_white_goals)
+                           obs_view, remove_white_goals, dynamic)
     return (final_b.to(torch.uint16), final_g.to(torch.uint16),
             final_i.to(torch.uint16), view, out_i)
 
 
 def _view_plain(final_b, final_g, done, act_i, obs_i, ce1, obs_view,
-                remove_white_goals):
-    """Packed (vh, vw, B) view of the post-reset boards, exits projected
-    with pixels built from per-environment values (static goals)."""
-    h, w = final_b.shape[:2]
+                remove_white_goals, dynamic):
+    """Packed (vh, vw, B) view of the post-reset boards, exits projected.
+    On static goals the exit pixels are built from per-environment values;
+    on dynamic goals they are read from the final boards."""
+    h, w, b = final_b.shape
     k = (obs_i.shape[0] - 3) // 8
     sel = lambda fresh, live: torch.where(done, fresh, live)  # noqa: E731
     ar = sel(obs_i[0], act_i[0])
@@ -226,26 +282,32 @@ def _view_plain(final_b, final_g, done, act_i, obs_i, ce1, obs_view,
     rows = lambda base, stride=3: sel(  # noqa: E731
         obs_i[base + stride * k:base + stride * k + k], obs_i[base:base + k])
     exit_r, exit_c, exit_v = rows(2), rows(2 + k), rows(2 + 2 * k)
-    gcol = rows(2 + 6 * k, stride=1)
-    if remove_white_goals:
-        gcol = torch.where(gcol == 7, torch.zeros_like(gcol), gcol)
-    gate = sel(obs_i[2 + 8 * k], ce1.to(torch.int32))
-    vals = (C.LEVEL_EXIT | gate * C.COLOR_R | (gcol << (C.COLOR_BIT + 3)))
 
     combined = combine_board_goals(final_b, final_g, remove_white_goals)
+    if dynamic:
+        lanes = torch.arange(b, device=final_b.device)
+        vals = bits16(combined)[exit_r.long(), exit_c.long(), lanes].view(
+            combined.dtype)
+    else:
+        gcol = rows(2 + 6 * k, stride=1)
+        if remove_white_goals:
+            gcol = torch.where(gcol == 7, torch.zeros_like(gcol), gcol)
+        gate = sel(obs_i[2 + 8 * k], ce1.to(torch.int32))
+        vals = (C.LEVEL_EXIT | gate * C.COLOR_R | (gcol << (C.COLOR_BIT + 3)))
     view = recenter(combined, ar, ac, obs_view)
     jy, jx = exit_offsets(exit_r, exit_c, ar, ac, (h, w), obs_view)
     return put_exits(view, jy, jx, exit_v, vals)
 
 
 def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
-            time_limit, obs_view, remove_white_goals=True):
+            time_limit, obs_view, remove_white_goals=True,
+            rule="static_spawnless", draw="none", seed=None):
     """K2 (``time_limit > 0``) or K3 on CUDA boards, the plain version on
     CPU boards; arguments and results as :func:`advance_plain`."""
     if board1.device.type == "cpu":
         return advance_plain(si, sf, act_i, obs_i, board1, goals,
                              init_board, fresh, time_limit, obs_view,
-                             remove_white_goals)
+                             remove_white_goals, rule, draw, seed)
     do_reset = time_limit > 0
     boards = (board1, goals, init_board) + (tuple(fresh) if do_reset else ())
     _build.check_cuda(*boards, dtypes=(torch.uint16,) * len(boards))
@@ -258,6 +320,8 @@ def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
     if obs_view is not None and obs_view[0] * obs_view[1] > _MAX_VIEW_CELLS:
         raise ValueError(f"K2 holds views of up to {_MAX_VIEW_CELLS} cells "
                          f"in shared memory, not {obs_view}")
+    if draw != "none":
+        _build.check_cuda(board1, seed, dtypes=(torch.uint16, torch.int32))
     if do_reset:
         _build.check_cuda(act_i, dtypes=(torch.int32,))
     vh, vw = obs_view if obs_view is not None else (0, 0)
@@ -272,15 +336,16 @@ def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
             if obs_view is not None else None)
     out_i = torch.empty((5, b), dtype=torch.int32, device=board1.device)
     fb, fg, fi = fresh if do_reset else (None, None, None)
+    kernel = "K2_advance_fold" if do_reset else "K3_advance_noreset"
     if b:
         _build.launch(
-            "K2_advance_fold" if do_reset else "K3_advance_noreset",
-            "env_step_kernels", "sl_advance",
-            *map(_build.ptr, (si, sf, act_i if do_reset else None, obs_i,
+            f"{kernel}[{rule}]", "env_step_kernels", "sl_advance",
+            *map(_build.ptr, (seed if draw != "none" else None, si, sf,
+                              act_i if do_reset else None, obs_i,
                               board1, goals, init_board, fb, fg, fi,
                               out_board, out_goals, out_init, view, out_i)),
             h, w, b, int(time_limit), vh, vw, num_exits,
-            int(remove_white_goals))
+            int(remove_white_goals), RULES.index(rule), DRAWS.index(draw))
     return out_board, out_goals, out_init, view, out_i
 
 
@@ -288,50 +353,36 @@ def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
 # The fused step
 # ---------------------------------------------------------------------------
 
-def unported_rule(static_goals, spawnless, simple_goals, spawn_simple_goals):
-    """The queued kernel (ROADMAP.md, queue B) that the bank's CA rule
-    needs, or None for the ported rule (static goals, no spawners)."""
-    if static_goals:
-        return None if spawnless else "K5 (_advance_block with spawn)"
-    if simple_goals:
-        return "K6 (_advance_with_simple_goals)"
-    if spawn_simple_goals:
-        return "K7 (_advance_pair_spawnsimple)"
-    return "K8 (_advance_pair)"
-
-
 def kernel_args(board, goals, init_board, action, agent_row, agent_col,
                 orientation, game_over, can_exit0, baseline_score,
-                spawn_prob, min_performance, seed=0, static_goals=False,
+                spawn_prob, min_performance, seed=None, static_goals=False,
                 episode_length=None, fresh=None, time_limit=0,
                 spawnless=False, simple_goals=False, spawn_simple_goals=False,
                 obs_view=None, exit_row=None, exit_col=None, exit_valid=None,
                 exit_gcol=None, remove_white_goals=True, perf_possible=None):
     """The arguments of K1 and K2/K3 for :func:`fused_step`'s arguments:
     the per-env values packed into the ``si`` (int32), ``sf`` (float32)
-    and ``obs_i`` (int32) row tables the kernels read."""
-    del seed  # the spawnless rule draws no random numbers
-    missing = unported_rule(static_goals, spawnless, simple_goals,
-                            spawn_simple_goals)
-    if missing is not None:
-        raise NotImplementedError(
-            "the fused step ports only the CA rule of banks with static "
-            f"goals and no spawners; this bank needs ROADMAP.md queue B "
-            f"item {missing}")
-    if perf_possible is None:
+    and ``obs_i`` (int32) row tables the kernels read, the bank's rule and
+    draw, and the step's seed as an int32 tensor on the boards' device."""
+    if static_goals and perf_possible is None:
         raise ValueError("static_goals=True needs the live perf_possible")
+    rule = pick_rule(static_goals, spawnless, simple_goals,
+                     spawn_simple_goals)
+    draw = pick_draw(rule, spawnless)
     b = board.shape[-1]
     dev = board.device
+    if draw != "none" and seed is None:
+        raise ValueError(f"the {rule} rule draws spawns: pass the seed")
 
     def i32(x):
         return torch.as_tensor(x, device=dev).to(torch.int32)
 
+    zeros = torch.zeros(b, dtype=torch.int32, device=dev)
     si = torch.stack([
         i32(action), i32(agent_row), i32(agent_col), i32(orientation),
         i32(game_over), i32(can_exit0), i32(baseline_score),
-        torch.zeros(b, dtype=torch.int32, device=dev)
-        if episode_length is None else i32(episode_length),
-        i32(perf_possible)])
+        zeros if episode_length is None else i32(episode_length),
+        zeros if perf_possible is None else i32(perf_possible)])
     sf = torch.stack([torch.as_tensor(spawn_prob, device=dev),
                       torch.as_tensor(min_performance, device=dev)]).to(
                           torch.float32)
@@ -353,7 +404,8 @@ def kernel_args(board, goals, init_board, action, agent_row, agent_col,
         fresh=((fresh["board"], fresh["goals"], fresh["init_board"])
                if time_limit > 0 else None),
         time_limit=time_limit, obs_view=obs_view if emit_obs else None,
-        remove_white_goals=remove_white_goals)
+        remove_white_goals=remove_white_goals, rule=rule, draw=draw,
+        seed=None if draw == "none" else i32(seed).reshape(1))
 
 
 def run_kernels(args, plain=False):
@@ -365,7 +417,8 @@ def run_kernels(args, plain=False):
         advance_plain if plain else advance)(
             args["si"], args["sf"], act_i, args["obs_i"], board1,
             args["goals"], args["init_board"], args["fresh"],
-            args["time_limit"], args["obs_view"], args["remove_white_goals"])
+            args["time_limit"], args["obs_view"], args["remove_white_goals"],
+            args["rule"], args["draw"], args["seed"])
     ret = (out_board, out_goals, act_i[0], act_i[1], act_i[2],
            act_i[3] != 0, adv_i[0], adv_i[1], adv_i[2], adv_i[3] != 0,
            adv_i[4])

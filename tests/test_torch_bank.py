@@ -16,6 +16,7 @@ import safelife_tpu.cells as C
 from safelife_torch.env import state as tstate
 from safelife_torch.env.env import BatchedSafeLifeEnv as TorchEnv
 from safelife_torch.levels import loader as tloader
+from safelife_torch.levels import synth as tsynth
 from safelife_tpu.env import state as jstate
 from safelife_tpu.env.env import BatchedSafeLifeEnv as JaxEnv
 from safelife_tpu.levels import loader as jloader
@@ -81,6 +82,28 @@ def test_synth_bank_matches_jax(spawners, dynamic_goals):
     want = jax_fields(jloader.build_bank(levels))
     got = tloader.build_bank(levels, device="cpu").to_numpy()
     assert_same_fields(got, want)
+
+
+@pytest.mark.parametrize("spawners,dynamic_goals", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_port_synth_bank_matches_jax(spawners, dynamic_goals):
+    """The port's own copy of the synthetic levels builds the same bank."""
+    want = jax_fields(synth.synth_bank(6, spawners=spawners,
+                                       dynamic_goals=dynamic_goals))
+    got = tsynth.synth_bank(6, spawners=spawners,
+                            dynamic_goals=dynamic_goals,
+                            device="cpu").to_numpy()
+    assert_same_fields(got, want)
+
+
+def test_general_bank_takes_the_general_rule():
+    """The general-pair bank: goals with spawners, PRESERVING and
+    INHIBITING cells, so no flag certifies them; both packages agree."""
+    levels = [tsynth.general_level(seed=i) for i in range(4)]
+    want = jax_fields(jloader.build_bank(levels))
+    got = tsynth.general_bank(4, device="cpu").to_numpy()
+    assert_same_fields(got, want)
+    assert not any(got[f] for f in FLAGS)
 
 
 def test_bank_numpy_round_trip():

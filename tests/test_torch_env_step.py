@@ -1,6 +1,8 @@
 """The plain version of the fused env-step core (kernels K1 and K2/K3)
-against the TPU kernels run in interpret mode, bit for bit, on
-append-still boards."""
+against the TPU kernels run in interpret mode, bit for bit, on banks of
+all five CA rules."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,8 +10,10 @@ import pytest
 import torch
 
 import safelife_tpu.cells as C
+from safelife_torch.levels import synth as tsynth
 from safelife_torch.ops import env_step_kernels
 from safelife_tpu.levels import loader as jloader
+from safelife_tpu.levels import synth as jsynth
 from safelife_tpu.ops import env_step_pallas, life_pallas
 
 # The tensors here are small.  One thread keeps torch from leaving an
@@ -36,12 +40,27 @@ def _levels(bank, idx):
                 baseline_score=take(bank.baseline_score))
 
 
-def step_inputs(seed, time_limit, view):
-    """fused_step keyword arguments (numpy) on append-still boards: live
+@functools.lru_cache(maxsize=None)
+def jax_bank(name):
+    """A v1.0 suite, the goal-spawner stress bank, or a general-pair bank
+    (goal boards with spawners, PRESERVING and INHIBITING cells)."""
+    if name == "stress":
+        return jsynth.synth_bank(8, spawners=True, dynamic_goals=True)
+    if name == "general":
+        return jloader.build_bank([tsynth.general_level(seed=i)
+                                   for i in range(8)])
+    return jloader.load_bank(f"benchmarks/v1.0/{name}")
+
+
+def step_inputs(seed, time_limit, view, suite="append-still"):
+    """fused_step keyword arguments (numpy) on the bank's boards: live
     levels with an agent that has moved and random actions, game-over
-    flags and exit gates, episode lengths straddling the time limit."""
+    flags and exit gates, episode lengths straddling the time limit.
+    Banks that draw spawns get spawn_prob 1 on even lanes and 0 on odd
+    ones: the interpret-mode TPU PRNG returns zero bits, so the TPU kernel
+    spawns wherever p > 0, as Philox does at p = 1."""
     rng = np.random.RandomState(seed)
-    bank = jloader.load_bank("benchmarks/v1.0/append-still")
+    bank = jax_bank(suite)
     live = _levels(bank, rng.randint(0, bank.num_levels, B))
     fresh = _levels(bank, rng.randint(0, bank.num_levels, B))
     board = live["board"]
@@ -59,13 +78,16 @@ def step_inputs(seed, time_limit, view):
         orientation=rng.randint(0, 4, B).astype(np.int32),
         game_over=rng.random(B) < 0.1, can_exit0=open_,
         baseline_score=live["baseline_score"],
-        spawn_prob=np.zeros(B, np.float32),
+        spawn_prob=np.where(np.arange(B) % 2 == 0, 1.0, 0.0).astype(
+            np.float32),
         min_performance=live["min_performance"],
         perf_possible=live["perf_possible"],
         exit_row=live["exit_row"], exit_col=live["exit_col"],
         exit_valid=live["exit_valid"], exit_gcol=live["exit_gcol"])
-    static = dict(static_goals=True, spawnless=True, time_limit=time_limit,
-                  obs_view=view)
+    static = dict(static_goals=bank.static_goals, spawnless=bank.spawnless,
+                  simple_goals=bank.simple_goals,
+                  spawn_simple_goals=bank.spawn_simple_goals,
+                  time_limit=time_limit, obs_view=view)
     if time_limit:
         kw["episode_length"] = rng.randint(
             time_limit - 3, time_limit + 1, B).astype(np.int32)
@@ -78,11 +100,8 @@ def _convert(kw, fn):
                 else fn(v)) for k, v in kw.items()}
 
 
-@pytest.mark.parametrize("time_limit,view", [
-    (0, None), (6, None), (6, (15, 15)), (6, (33, 33))])
-def test_fused_step_matches_pallas_interpret(time_limit, view):
-    kw, static = step_inputs(7 + time_limit + (view or (0,))[0], time_limit,
-                             view)
+def _check_fused_step(suite, time_limit, view, seed):
+    kw, static = step_inputs(seed, time_limit, view, suite)
     want = env_step_pallas.fused_step(
         **_convert(kw, jnp.asarray), **static, seed=3,
         interpret=life_pallas.interpret_params())
@@ -97,15 +116,38 @@ def test_fused_step_matches_pallas_interpret(time_limit, view):
         done = ((kw["episode_length"] + 1 > time_limit) | kw["game_over"]
                 | np.asarray(got[5]))
         assert 0 < done.sum() < B
+    return kw, static, got
 
 
-@pytest.mark.parametrize("flags,item", [
-    (dict(static_goals=True), "K5"),
-    (dict(spawnless=True, simple_goals=True), "K6"),
-    (dict(spawn_simple_goals=True), "K7"),
-    (dict(), "K8")])
-def test_unported_rules_raise(flags, item):
-    kw, _ = step_inputs(1, 0, None)
-    with pytest.raises(NotImplementedError, match=item):
-        env_step_kernels.fused_step(
-            **_convert(kw, lambda x: torch.as_tensor(np.array(x))), **flags)
+@pytest.mark.parametrize("time_limit,view", [
+    (0, None), (6, None), (6, (15, 15)), (6, (33, 33))])
+def test_fused_step_matches_pallas_interpret(time_limit, view):
+    _check_fused_step("append-still", time_limit, view,
+                      7 + time_limit + (view or (0,))[0])
+
+
+RULE_BANKS = [("append-dynamic", "simple"), ("navigation", "simple"),
+              ("append-spawn", "static"), ("stress", "spawn_simple"),
+              ("general", "general")]
+
+
+@pytest.mark.parametrize("suite,rule,time_limit,view", [
+    (suite, rule, time_limit, view) for suite, rule in RULE_BANKS
+    for time_limit, view in ((0, None), (6, (15, 15)))]
+    + [("general", "general", 6, (33, 33))])
+def test_fused_step_rules_match_pallas_interpret(suite, rule, time_limit,
+                                                 view):
+    """Every CA rule, spawns drawn at p = 1 on half the lanes; the view's
+    exit pixels are read from the final boards on dynamic goals."""
+    kw, static, got = _check_fused_step(suite, time_limit, view,
+                                        11 + time_limit + (view or (0,))[0])
+    args = {k: static[k] for k in ("static_goals", "spawnless",
+                                   "simple_goals", "spawn_simple_goals")}
+    assert env_step_kernels.pick_rule(**args) == rule
+    # Spawns fired: the p = 1 lanes differ from a step without spawns.
+    quiet = env_step_kernels.fused_step(
+        **_convert(dict(kw, spawn_prob=np.zeros(B, np.float32)),
+                   lambda x: torch.as_tensor(np.array(x))), **static, seed=3)
+    if not static["spawnless"]:
+        moved = (got[0] != quiet[0]).any(dim=(0, 1)).numpy()
+        assert moved[0::2].any() and not moved[1::2].any()
