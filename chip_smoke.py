@@ -16,8 +16,15 @@ Phases, each an assertion that ends the run on failure:
    and a general-pair bank, which take all five CA rules, spawn draws at
    the banks' rates included; then the Philox draws (24-bit and paired):
    same seed same field, seeds differ, rate within 5 sigma, edges exact;
+   Then the kernels of the measurement scripts against their plain
+   versions, bit for bit: S3-S5 (crop, transpose, neighbour sum) in every
+   variant at (26, 26, 16384), K1 at every block width, T1 (the Philox
+   word field; its word at the zero counter and key against Random123's
+   known answer); and the integrity guard (``utils/integrity.py``)
+   on the card: both checks pass and a corrupted output raises;
 4. 12-step rollouts through the kernels against the plain env path;
-5. the main path, ``safelife_torch.bench``: its selftest, then its timing
+5. the main path, ``safelife_torch.bench``: the integrity check and the
+   selftest that its ``main`` runs, then its timing
    of append-still, append-dynamic and the stress bank at B = 65536 for 160
    steps each (fresh levels every 20 steps, the observation consumed every
    step); then the evaluation path (no auto-reset) for 20 steps, and a few
@@ -26,12 +33,19 @@ Phases, each an assertion that ends the run on failure:
 6. each kernel's time at the main path's shapes beside its bound and its
    plain version's time (K2 and K3 under each rule), and a profile of 20
    steps of each configuration (device time by kernel, idle share);
-7. one JSON line listing the kernels, and last the result line.
+7. the measurement entry points ``python -m safelife_torch.scripts.*``
+   (stepbench, ablock_bench, obs_micro, stress_micro), each run once with
+   the launch counts read around it, then the times of their kernels
+   (S1-S5, T1) beside bounds, plain versions and library calls, K1's
+   time on one state with its agents where they are and moved to a corner,
+   and a profile of stepbench's full step at its batch;
+8. one JSON line listing the kernels, and last the result line.
 
 Exits nonzero, printing no result, when no CUDA device is present.
 """
 
 import collections
+import functools
 import json
 import subprocess
 import sys
@@ -40,13 +54,17 @@ import time
 import numpy as np
 import torch
 
-from safelife_torch import bench, bits16
+from safelife_torch import bench, bits16, scripts
 from safelife_torch import cells as C
 from safelife_torch.env.env import BatchedSafeLifeEnv, EnvConfig
 from safelife_torch.levels import loader, synth
 from safelife_torch.ops import _build, env_step_kernels as esk, life_kernels
+from safelife_torch.ops import obs_micro as om
 from safelife_torch.ops import rng
 from safelife_torch.ops.life import nb_sum
+from safelife_torch.scripts import (ablock_bench, obs_micro, stepbench,
+                                    stress_micro)
+from safelife_torch.utils import integrity
 
 MAIN_BATCH = 65536
 MAIN_STEPS = 160
@@ -95,6 +113,47 @@ KERNELS = {
                                "safelife_tpu/ops/life_pallas.py:458"),
     "K8_advance_both": (LIFE_SOURCE, "safelife_tpu/ops/life_pallas.py:387"),
 }
+OBS_SOURCE = "safelife_torch/csrc/obs_micro.cu"
+PHILOX_SOURCE = "safelife_torch/csrc/philox_words.cu"
+# The batch of the measurement scripts (all but stress_micro's).
+SCRIPT_BATCH = 16384
+ENTRY_POINTS = {"stepbench": stepbench, "ablock_bench": ablock_bench,
+                "obs_micro": obs_micro, "stress_micro": stress_micro}
+# The kernels of the measurement scripts and of the PRNG probe: JSON name
+# -> (source, the TPU kernel, the launch counter, the path that launches
+# it: an entry point, or one of its rows after a colon).  S1 is K1
+# relaunched alone, so it counts under K1's key in its own row.
+SCRIPT_KERNELS = {
+    "S1_action_only": (STEP_SOURCE, "scripts/stepbench.py:111", "K1_action",
+                       "stepbench: action kernel only"),
+    **{f"S2_action_block[{n}]": (STEP_SOURCE, "scripts/ablock_bench.py:42",
+                                 f"S2_action_block[{n}]", "ablock_bench")
+       for n in esk.ACTION_BLOCKS},
+    **{f"S3_view_crop[{c}]": (OBS_SOURCE, "scripts/obs_micro.py:77",
+                              f"S3_view_crop[{c}]", "obs_micro")
+       for c in om.COMPUTES},
+    **{f"S4_view_transpose[{c}]": (OBS_SOURCE, "scripts/obs_micro.py:103",
+                                   f"S4_view_transpose[{c}]", "obs_micro")
+       for c in om.COMPUTES},
+    **{f"S5_nb_sum[{d}x{p}]": (OBS_SOURCE, "scripts/obs_micro.py:133",
+                               f"S5_nb_sum[{d}x{p}]", "obs_micro")
+       for _, d, p in obs_micro.NB_SUM_ROWS},
+    "T1_philox_words": (PHILOX_SOURCE, "tests/test_fused_step.py:256",
+                        "T1_philox_words", "bench"),
+}
+# Kernels of the main path that each entry point must launch as well.
+ENTRY_KERNELS = {
+    "stepbench": ("K2_advance_fold[static_spawnless]",
+                  "K3_advance_noreset[static_spawnless]",
+                  "K2_advance_fold[simple]", "K2_advance_fold[spawn_simple]"),
+    "stress_micro": ("K8_advance_both", "K1_action",
+                     "K2_advance_fold[spawn_simple]",
+                     "K2_advance_fold[simple]",
+                     "K2_advance_fold[static_spawnless]"),
+}
+# The first word of Random123's known answer for Philox4x32-10 at counter
+# (0, 0, 0, 0) and key (0, 0): T1's word at cell 0, environment 0, seed 0.
+PHILOX_KAT_ZERO = 0x6627e8d5
 
 
 def memory_rate(name):
@@ -319,6 +378,107 @@ def check_philox(dev, p=0.3):
     print(f"Philox paired draw through K8: spawn rate {rate:.4f} (p={p})")
 
 
+def check_obs_micro(dev, b=SCRIPT_BATCH):
+    """S3-S5 in every variant against their plain versions: full-range
+    and small boards, shifts beyond the board both ways, odd batches."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+
+    def u16(shape, high=2**16):
+        return torch.randint(0, high, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.uint16)
+
+    for batch in (b, 1004, 1001):
+        x = u16((26, 26, batch))
+        si = torch.randint(-40, 40, (2, batch), generator=gen, device=dev,
+                           dtype=torch.int32)
+        for compute in om.COMPUTES:
+            for view in (om.VIEW, (9, 31)):
+                assert_bit_equal(
+                    [om.view_crop(x, si, compute, view)],
+                    [om.view_crop_plain(x, si, compute, view)],
+                    f"S3 {compute} view {view} B={batch}")
+            window = bits16(x)[:15, :15].contiguous().view(torch.uint16)
+            for v in (window, u16((33, 33, batch))):
+                assert_bit_equal([om.view_transpose(v, compute)],
+                                 [om.view_transpose_plain(v, compute)],
+                                 f"S4 {compute} {tuple(v.shape)}")
+        small = (x.to(torch.int32) & 15).to(torch.uint16)
+        for dtype in om.WIDTHS:
+            if batch % om._LANES[dtype]:
+                continue
+            for planes in om.PLANES:
+                for board in (small, x):
+                    assert_bit_equal(
+                        [om.nb_sum_planes(board, dtype, planes)],
+                        [om.nb_sum_planes_plain(board, dtype, planes)],
+                        f"S5 {dtype} x{planes} B={batch}")
+    print(f"S3 crop, S4 transpose, S5 neighbour sum == plain: every variant "
+          f"at (26,26,{b}), 1004 and 1001 environments")
+
+
+def check_k1_blocks(dev):
+    """K1 at every block width against its plain version."""
+    rng_ = np.random.RandomState(8)
+    for shape in ((26, 26, SCRIPT_BATCH), (3, 5, 1001)):
+        si, board = action_inputs(rng_, shape, dev)
+        want = esk.action_plain(si, board)
+        for block in esk.ACTION_BLOCKS:
+            assert_bit_equal(esk.apply_action(si, board, block=block), want,
+                             f"K1 block {block} {shape}")
+    print(f"K1 action == plain at block widths {esk.ACTION_BLOCKS}: random "
+          f"states, (26,26,{SCRIPT_BATCH}) and (3,5,1001)")
+
+
+def check_t1(dev):
+    """T1 against its plain version (whose Philox the CPU tests hold to
+    Random123's known answers), and T1's first word at seed 0 against
+    Random123's answer for the zero counter and key."""
+    for seed, shape in ((integrity.PROBE_SEED, integrity.PROBE_SHAPE),
+                        (123456789, (26, 26, SCRIPT_BATCH)),
+                        (-5, (3, 5, 1001))):
+        s = torch.tensor([seed], dtype=torch.int32, device=dev)
+        assert_bit_equal([rng.philox_words(s, shape)],
+                         [rng.philox_words_plain(s, shape)],
+                         f"T1 seed {seed} {shape}")
+    zero = rng.philox_words(torch.zeros(1, dtype=torch.int32, device=dev),
+                            (1, 1, 1))
+    assert int(zero) & rng.MASK32 == PHILOX_KAT_ZERO, hex(int(zero))
+    print("T1 Philox words == plain: the probe (seed 7, 8 cells x 128 "
+          f"environments), (26,26,{SCRIPT_BATCH}) and (3,5,1001); its word "
+          "at the zero counter and key is Random123's known answer")
+
+
+def check_integrity(dev):
+    """Both integrity checks pass on the card, and a corrupted output (the
+    score chain zeroed, the signature of the incident the guard exists
+    for) raises."""
+    assert integrity.check_device_integrity(dev)
+    names = ("append-still", "append-dynamic", "stress", "general")
+    for name in names:
+        assert integrity.check_bank_reset_integrity(load_bank(name, dev))
+    real = integrity._device_outputs
+
+    def corrupted(*args):
+        out = dict(real(*args))
+        out["points"] = out["points"] * 0
+        return out
+
+    integrity._device_outputs = corrupted
+    try:
+        integrity.check_device_integrity(dev)
+    except integrity.DeviceIntegrityError as err:
+        assert "points" in str(err), err
+        print(f"integrity: a zeroed score chain raises: {str(err)[:120]}...")
+    else:
+        raise AssertionError("a corrupted output passed the integrity check")
+    finally:
+        integrity._device_outputs = real
+    print(f"integrity: device check (CA, K4, scoring, side effects, reset "
+          f"gather, T1 probe) and bank reset check on {', '.join(names)} "
+          "passed")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: kernel rollout against the plain rollout.
 # ---------------------------------------------------------------------------
@@ -349,9 +509,11 @@ def main_path(dev):
     _build.LAUNCHES.clear()
     t0 = time.perf_counter()
     banks = bench.load_banks(dev)
+    # What bench.main runs before its timing.
+    integrity.check_device_integrity(dev)
     bench.selftest(banks)
-    print(f"bench selftest passed in {time.perf_counter() - t0:.1f} s "
-          "(bank loads included)")
+    print(f"bench integrity check and selftest passed in "
+          f"{time.perf_counter() - t0:.1f} s (bank loads included)")
     results = {}
     for name in bench.CONFIGS:
         bank = banks[name]
@@ -405,7 +567,7 @@ def main_path(dev):
               f"K2, and through K1 and K3 ({rule} rule, draw "
               f"{esk.pick_draw(rule, bank.spawnless)})")
     launches = dict(_build.LAUNCHES)
-    for name in KERNELS:
+    for name in list(KERNELS) + ["T1_philox_words"]:
         assert launches.get(name, 0) > 0, (name, launches)
     print(f"launches on the main path: {launches}")
     return banks, results, launches
@@ -445,15 +607,71 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def draw_cells(*boards):
-    """Cells where a spawn draw is read: dead, not frozen, a spawner in the
-    3x3 neighbourhood (an upper bound on the draws the rules make)."""
-    n = 0
-    for board in boards:
-        x = as_i32(board)
-        near = nb_sum((x >> C.SPAWNING_BIT) & 1) != 0
-        n += int((near & ((x & (C.ALIVE | C.FROZEN)) == 0)).sum())
-    return n
+def draw_cells(board, inhibit=True):
+    """Cells where the full rule asks for a spawn draw (``FullRule::rule``
+    in ``csrc/safelife_rule.cuh``): dead, not frozen, not three live
+    cells in the 3x3 neighbourhood, a spawner there, and with ``inhibit``
+    (the rule's PI) no inhibiting cell there."""
+    x = as_i32(board)
+
+    def near(bit):
+        return nb_sum((x >> bit) & 1)
+
+    asked = (((x & (C.ALIVE | C.FROZEN)) == 0) & (near(C.ALIVE_BIT) != 3)
+             & (near(C.SPAWNING_BIT) != 0))
+    if inhibit:
+        asked &= near(C.INHIBITING_BIT) == 0
+    return int(asked.sum())
+
+
+def row_bytes(table, rows):
+    """Bytes of ``rows`` rows of a (rows, B) table."""
+    return rows * table.shape[1] * table.element_size()
+
+
+def action_bytes(si, board, out, act_i):
+    """Bytes K1 must move (``action_kernel`` in
+    ``csrc/env_step_kernels.cu``): the board read and written, ``act_i``
+    written, ``si`` rows 0-2, 4 and 5 read, and row 3 (the orientation)
+    only for the environments whose action neither moves nor turns."""
+    turned = (si[0] >= 1) & (si[0] <= 8) & (si[4] == 0)
+    return (nbytes(board, out, act_i) + row_bytes(si, 5)
+            + int((~turned).sum()) * si.element_size())
+
+
+def advance_bytes(args, board1, act_i, out, done):
+    """Bytes K2 (``time_limit > 0``) or K3 must move on this step's data
+    (``advance_kernel`` in ``csrc/env_step_kernels.cu``): every board
+    input read once and every output written once, the fresh levels'
+    three boards of the resetting environments, and the rows of the
+    tables that the kernel reads for them: ``si`` rows 6, 8 (static
+    goals), 4 and 7 (fold); ``sf`` row 1 and row 0 with a draw; ``act_i``
+    row 3 (fold) and rows 0-1 where the view is of a live environment;
+    ``obs_i``: each environment's exit flags, and for each valid exit its
+    row and column (and its goal colour on static goals); for a
+    resetting one the fresh agent cell and, with a valid exit on static
+    goals, the fresh gate."""
+    fold = args["time_limit"] > 0
+    static = args["rule"] in ("static_spawnless", "static")
+    draw = args["draw"] != "none"
+    si, sf, obs_i = args["si"], args["sf"], args["obs_i"]
+    b = board1.shape[-1]
+    n_done = int(done.sum())
+    moved = nbytes(board1, args["goals"], args["init_board"], *out)
+    moved += row_bytes(si, 1 + static + 2 * fold)
+    moved += row_bytes(sf, 1 + draw) + 4 * draw
+    if fold:
+        moved += 3 * nbytes(board1) // b * n_done + row_bytes(act_i, 1)
+    if obs_i is not None:
+        k = (obs_i.shape[0] - 3) // 8
+        valid = torch.where(done, obs_i[2 + 5 * k:2 + 6 * k],
+                            obs_i[2 + 2 * k:2 + 3 * k]) != 0
+        n_valid = valid.sum(0)
+        words = (k * b + int(n_valid.sum()) * (2 + static) + 2 * n_done
+                 + static * int((done & (n_valid > 0)).sum())
+                 + 2 * (b - n_done))
+        moved += words * obs_i.element_size()
+    return moved
 
 
 def step_inputs(bank, dev, seed=4):
@@ -501,30 +719,28 @@ def kernel_timings(banks, dev, rate):
         out = adv(fold, esk.advance, board1, act_i)()
         draws = draw_cells(board1) if fold["draw"] != "none" else 0
         if fold["draw"] == "pair":
-            draws += draw_cells(fold["goals"])
+            draws += draw_cells(fold["goals"], inhibit=rule == "general")
         runs[f"K2_advance_fold[{rule}]"] = (
             adv(fold, esk.advance, board1, act_i),
             adv(fold, esk.advance_plain, board1, act_i),
-            nbytes(fold["seed"], si, fold["sf"], act_i, fold["obs_i"], board1,
-                   fold["goals"], fold["init_board"], *out)
-            + 3 * h * w * int(done.sum()) * 2, draws,
+            advance_bytes(fold, board1, act_i, out, done), draws,
             f"{name} (H,W,B)=({h},{w},{b}), {int(done.sum())} resetting")
         out = adv(noreset, esk.advance, board1, act_i)()
         runs[f"K3_advance_noreset[{rule}]"] = (
             adv(noreset, esk.advance, board1, act_i),
             adv(noreset, esk.advance_plain, board1, act_i),
-            nbytes(noreset["seed"], noreset["si"], noreset["sf"], board1,
-                   noreset["goals"], noreset["init_board"], *out), draws,
-            name)
+            advance_bytes(noreset, board1, act_i, out, done), draws, name)
+        # Default arguments bind append-still's tensors: the loop rebinds
+        # si and board1 for the next rule.
         if rule == "static_spawnless":
             board = fold["board"]
             runs["K1_action"] = (
-                lambda: esk.apply_action(si, board),
-                lambda: esk.action_plain(si, board),
-                nbytes(board, si, board1, act_i), 0, name)
+                lambda si=si, board=board: esk.apply_action(si, board),
+                lambda si=si, board=board: esk.action_plain(si, board),
+                action_bytes(si, board, board1, act_i), 0, name)
             runs["K4_advance_spawnless"] = (
-                lambda: life_kernels.advance_spawnless(board1),
-                lambda: life_kernels.advance_spawnless_plain(board1),
+                lambda b=board1: life_kernels.advance_spawnless(b),
+                lambda b=board1: life_kernels.advance_spawnless_plain(b),
                 2 * nbytes(board1), 0, name)
         if rule == "simple":
             goals = fold["goals"]
@@ -562,19 +778,21 @@ def rule_kernel_runs(fold, board1, name):
     goals, probs, seed = fold["goals"], fold["sf"][0], fold["seed"]
     f5 = rng.spawn_field24(seed, probs, board1.shape)
     fb, fg = rng.spawn_field_pair(seed, probs, board1.shape)
+    # A given field is read (one byte) only where the rule asks for a draw.
     draws_b, draws_g = draw_cells(board1), draw_cells(goals)
+    spawn_simple_g = draw_cells(goals, inhibit=False)
     what = f"{name} post-action boards and goals, spawn_prob 0.3"
     return {
         "K5_advance_with_field": (
             lambda: life_kernels.advance_with_field(board1, f5),
             lambda: life_kernels.advance_with_field_plain(board1, f5),
-            2 * nbytes(board1) + nbytes(f5), 0, what),
+            2 * nbytes(board1) + draws_b, 0, what),
         "K7_advance_pair_fields": (
             lambda: life_kernels.advance_pair_spawnsimple_with_fields(
                 board1, fb, goals, fg),
             lambda: life_kernels.advance_pair_spawnsimple_with_fields_plain(
                 board1, fb, goals, fg),
-            4 * nbytes(board1) + 2 * nbytes(fb), 0, what),
+            4 * nbytes(board1) + draws_b + spawn_simple_g, 0, what),
         "K8_advance_both": (
             lambda: life_kernels.advance_both(board1, goals, probs, seed),
             lambda: life_kernels.advance_both_plain(board1, goals, probs,
@@ -622,6 +840,182 @@ def profile(name, bank, state, steps=ROLLOUT):
         print(f"  {ms / steps:8.4f} ms/step  {ms / busy_ms:6.1%}  {op}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the measurement entry points and their kernels.
+# ---------------------------------------------------------------------------
+
+def entry_points(dev):
+    """Run each entry point once, its launch counts read around it and
+    around each of its timed rows; returns {path: launches}, a path being
+    an entry point or "entry point: row"."""
+    out = {}
+    for name, module in ENTRY_POINTS.items():
+        print(f"python -m safelife_torch.scripts.{name}:", flush=True)
+        _build.LAUNCHES.clear()
+        scripts.ROW_LAUNCHES.clear()
+        t = time.perf_counter()
+        rows = module.main(dev)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        assert all(us > 0 for us in rows.values()), rows
+        for counter in ENTRY_KERNELS.get(name, ()):
+            assert launches.get(counter, 0) > 0, (name, counter, launches)
+        print(f"{name}: {len(rows)} rows in {time.perf_counter() - t:.1f} s;"
+              f" launches {launches}")
+        out[name] = launches
+        out.update({f"{name}: {row}": n
+                    for row, n in scripts.ROW_LAUNCHES.items()})
+    # T1's path is the main path, checked in phase 5.
+    for kernel, (_, _, counter, path) in SCRIPT_KERNELS.items():
+        if path in out:
+            assert out[path].get(counter, 0) > 0, (kernel, path, out[path])
+    print(f"stepbench row 'action kernel only' (S1): launches "
+          f"{out['stepbench: action kernel only']}")
+    return out
+
+
+def time_chain(fn, x, iters, chain, graph=False):
+    """ms per launch of ``fn(x)`` over ``iters`` launches between CUDA
+    events; with ``chain`` each output is the next input.  With ``graph``
+    the launches are captured in one CUDA graph and replayed, so no host
+    time separates them: the time of the kernels themselves, where a
+    Python loop would time the host's launch rate."""
+    def loop(x):
+        for _ in range(iters):
+            y = fn(x)
+            x = y if chain else x
+
+    fn(x)
+    torch.cuda.synchronize()
+    run = functools.partial(loop, x)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            loop(x)
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def script_runs(dev):
+    """{kernel: (kernel fn, plain fn, input, chained, library fn or None,
+    bytes moved, operations, what)} at the scripts' shapes."""
+    b = SCRIPT_BATCH
+    cells = 26 * 26 * b
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    still = load_bank("append-still", dev)
+    board = still.take(torch.arange(b, device=dev) % still.num_levels).board
+    runs = {}
+    for name, rows, block in [("S1_action_only", 8, None)] + [
+            (f"S2_action_block[{n}]", 9, n) for n in esk.ACTION_BLOCKS]:
+        si = torch.zeros((rows, b), dtype=torch.int32, device=dev)
+        si[0] = 2
+        out, act_i = esk.apply_action(si, board, block)
+        runs[name] = (
+            lambda x, si=si, block=block: esk.apply_action(si, x, block)[0],
+            lambda x, si=si: esk.action_plain(si, x)[0], board, True, None,
+            action_bytes(si, board, out, act_i),
+            OPS_PER_CELL["K1_action"] * cells,
+            f"append-still boards, action 2 (MOVE RIGHT), block "
+            f"{block or 128}, the board fed back")
+    x = torch.randint(0, 2**15, (26, 26, b), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    si = torch.randint(0, 26, (2, b), generator=gen, device=dev,
+                       dtype=torch.int32)
+    vh, vw = om.VIEW
+    rows = torch.remainder(si[0][None, :] + torch.arange(vh, device=dev)[
+        :, None], 26)[:, None, :].long()
+    cols = torch.remainder(si[1][None, :] + torch.arange(vw, device=dev)[
+        :, None], 26)[None, :, :].long()
+    lanes = torch.arange(b, device=dev)
+    v = torch.randint(0, 2**15, (vh, vw, b), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    view_bytes = vh * vw * b * 2
+    for c in om.COMPUTES:
+        runs[f"S3_view_crop[{c}]"] = (
+            lambda x, c=c: om.view_crop(x, si, c),
+            lambda x, c=c: om.view_crop_plain(x, si, c), x, False,
+            lambda: bits16(x)[rows, cols, lanes],
+            2 * view_bytes + nbytes(si), 4 * vh * vw * b,
+            "random boards, random shifts: the window read, the view written")
+        runs[f"S4_view_transpose[{c}]"] = (
+            lambda v, c=c: om.view_transpose(v, c),
+            lambda v, c=c: om.view_transpose_plain(v, c), v, False,
+            lambda: bits16(v).permute(2, 0, 1).contiguous(),
+            2 * view_bytes, vh * vw * b, "random (15,15,B) views")
+    small = (x.to(torch.int32) & 15).to(torch.uint16)
+    for _, d, p in obs_micro.NB_SUM_ROWS:
+        runs[f"S5_nb_sum[{d}x{p}]"] = (
+            lambda x, d=d, p=p: om.nb_sum_planes(x, d, p),
+            lambda x, d=d, p=p: om.nb_sum_planes_plain(x, d, p), small, True,
+            None, 2 * nbytes(small), 8 * p * cells,
+            "random boards & 15, the output fed back")
+    seed = torch.tensor([integrity.PROBE_SEED], dtype=torch.int32,
+                        device=dev)
+    probe = integrity.PROBE_SHAPE
+    words = int(np.prod(probe))
+    runs["T1_philox_words"] = (
+        lambda s: rng.philox_words(s, probe),
+        lambda s: rng.philox_words_plain(s, probe), seed, False, None,
+        4 * words + 4, OPS_PER_DRAW * words,
+        f"the integrity probe: seed {integrity.PROBE_SEED}, {probe}")
+    return runs
+
+
+def script_timings(dev, rate):
+    """{kernel: (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)} at the scripts' shapes."""
+    out = {}
+    for name, (kernel, plain, x, chain, library, moved, ops,
+               what) in script_runs(dev).items():
+        err = assert_bit_equal([kernel(x)], [plain(x)],
+                               f"{name} at the scripts' shapes")
+        ms = time_chain(kernel, x, 200, chain, graph=True)
+        loop_ms = time_chain(kernel, x, 200, chain)
+        plain_ms = time_chain(plain, x, 3, False)
+        library_ms = (time_chain(lambda _: library(), None, 200, False,
+                                 graph=True) if library else None)
+        bytes_ms = moved / rate * 1e3
+        ops_ms = ops / PEAK_OPS * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound = max(bytes_ms, ops_ms)
+        out[name] = (err, ms, plain_ms, bound, bound_by, library_ms)
+        lib = f", library {library_ms:.4f} ms" if library else ""
+        print(f"timing {name}: max abs err {err} vs plain; {ms:.4f} ms in "
+              f"a CUDA graph, {loop_ms:.4f} ms launched from Python "
+              f"(plain {plain_ms:.4f} ms{lib}), bound {bound:.6f} ms by "
+              f"{bound_by} ({moved / 1e6:.3f} MB, {ops / 1e9:.3f} G ops), "
+              f"{bytes_ms / ms:.1%} of the memory rate; {what}")
+    return out
+
+
+def k1_state_probe(bank, dev):
+    """K1 at the main path's width on the phase-6 state, in a CUDA graph:
+    as it is, with every agent moved to (0, 0) (the four cells a thread
+    reads around its agent are then one address for the whole warp), and
+    with the board fed back (each launch reads the last one's output)."""
+    fold = step_inputs(bank, dev)[0]
+    si, board = fold["si"], fold["board"]
+    corner = si.clone()
+    corner[1:3] = 0
+    for what, s, chain in (("agents where they are", si, False),
+                           ("agents where they are, board fed back", si,
+                            True),
+                           ("every agent at (0, 0)", corner, False)):
+        ms = time_chain(lambda x, s=s: esk.apply_action(s, x)[0], board, 50,
+                        chain, graph=True)
+        print(f"K1 state probe, (26,26,{MAIN_BATCH}) append-still one step "
+              f"in: {ms:.4f} ms, {what}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -655,6 +1049,10 @@ def main():
     check_k1(dev)
     check_k2_k3(dev)
     check_philox(dev)
+    check_obs_micro(dev)
+    check_k1_blocks(dev)
+    check_t1(dev)
+    check_integrity(dev)
     check_rollouts(dev)
     print(f"phases 3-4: {time.perf_counter() - t:.1f} s")
 
@@ -669,6 +1067,20 @@ def main():
         profile(name, banks[name], state)
     print(f"phase 6: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    paths = dict(entry_points(dev), bench=launches)
+    script = script_timings(dev, rate)
+    still = banks["append-still"]
+    k1_state_probe(still, dev)
+    # The step that stepbench's first row times in a graph, launched from
+    # Python at its batch: the device's busy share there.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    env = BatchedSafeLifeEnv(EnvConfig(view_shape=VIEW), device=dev)
+    profile(f"append-still B={SCRIPT_BATCH} (stepbench's full step)", still,
+            env.reset_all(still, SCRIPT_BATCH, gen))
+    print(f"phase 7: {time.perf_counter() - t:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = timings[name]
@@ -677,6 +1089,13 @@ def main():
             launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None))
+    for name, (source, replaces, counter, path) in SCRIPT_KERNELS.items():
+        err, ms, plain_ms, bound_ms, bound_by, library_ms = script[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=paths[path][counter], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

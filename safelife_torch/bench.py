@@ -12,7 +12,9 @@ headline), append-dynamic (the goal board is not a CA fixed point, the
 on the board and on the goal board (both CA advances run the full rule
 with a live spawn draw).  Fresh levels are drawn every ``ROLLOUT`` steps.
 
-Before timing, a selftest on the card; a failure exits nonzero:
+Before timing, the device integrity check (``utils/integrity.py``: the
+card's ops against host goldens), then a selftest on the card; a failure
+exits nonzero:
 
 1. kernel rollouts against plain rollouts, 12 steps at B = 256 with
    auto-reset on and off, on append-still and on a synthetic bank whose
@@ -48,6 +50,7 @@ from . import bits16, resolve_device
 from .env.env import BatchedSafeLifeEnv, EnvConfig
 from .levels import loader, synth
 from .ops import _build, life_kernels, rng
+from .utils import integrity
 
 BASELINE_STEPS_PER_S = 10e6  # the north star of BASELINE.md
 BATCH = int(os.environ.get("BENCH_BATCH", 65536))
@@ -282,6 +285,9 @@ def main():
     _build.build_all()
     banks = load_banks(dev)
     if os.environ.get("BENCH_SELFTEST", "1") != "0":
+        # Host goldens first (a card that computes wrong values at full
+        # speed), then the kernels against their plain versions.
+        integrity.check_device_integrity(dev)
         selftest(banks)
     rates = {}
     for name in CONFIGS:

@@ -3,7 +3,9 @@
 // auto-reset fold and the packed agent-centred view).
 //
 // Replaces the TPU kernels of safelife_tpu/ops/env_step_pallas.py:
-//   K1  _action_kernel (with _apply_action), launched by fused_step;
+//   K1  _action_kernel (with _apply_action), launched by fused_step, and
+//       relaunched alone by scripts/stepbench.py:111 (S1) and over block
+//       widths by scripts/ablock_bench.py:42 (S2);
 //   K2  _advance_kernel with time_limit > 0 (fold, optional view);
 //   K3  _advance_kernel with time_limit == 0 (no fold, no view).
 // K2/K3 inline the CA rule the bank's flags pick (env_step_pallas.py
@@ -66,7 +68,10 @@ __device__ __forceinline__ int select_by_orient(int o, int t0, int t1, int t2,
 // si rows: 0 action, 1 agent_row, 2 agent_col, 3 orientation, 4 game_over,
 // 5 can_exit0, 6 baseline_score, 7 episode_length, 8 perf_possible.
 // out_i rows: 0 agent_row', 1 agent_col', 2 orientation', 3 exited.
-__global__ void __launch_bounds__(128)
+// BLOCK threads per block: 128 on the main path (sl_action); the other
+// widths are the block sweep of scripts/ablock_bench.py (sl_action_block).
+template <int BLOCK>
+__global__ void __launch_bounds__(BLOCK)
     action_kernel(const int32_t* __restrict__ si,
                   const uint16_t* __restrict__ board,
                   uint16_t* __restrict__ out, int32_t* __restrict__ out_i,
@@ -390,7 +395,40 @@ extern "C" int sl_action(const int32_t* si, const uint16_t* board,
                          uint16_t* out_board, int32_t* out_i, int H, int W,
                          int B, cudaStream_t stream) {
   const dim3 grid((B + 127) / 128, H);
-  action_kernel<<<grid, 128, 0, stream>>>(si, board, out_board, out_i, H, W, B);
+  action_kernel<128>
+      <<<grid, 128, 0, stream>>>(si, board, out_board, out_i, H, W, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 at a block width of 64, 128, 256, 512 or 1024 threads.
+extern "C" int sl_action_block(const int32_t* si, const uint16_t* board,
+                               uint16_t* out_board, int32_t* out_i, int H,
+                               int W, int B, int block, cudaStream_t stream) {
+  const dim3 grid((B + block - 1) / block, H);
+  switch (block) {
+    case 64:
+      action_kernel<64><<<grid, 64, 0, stream>>>(si, board, out_board, out_i,
+                                                 H, W, B);
+      break;
+    case 128:
+      action_kernel<128><<<grid, 128, 0, stream>>>(si, board, out_board,
+                                                   out_i, H, W, B);
+      break;
+    case 256:
+      action_kernel<256><<<grid, 256, 0, stream>>>(si, board, out_board,
+                                                   out_i, H, W, B);
+      break;
+    case 512:
+      action_kernel<512><<<grid, 512, 0, stream>>>(si, board, out_board,
+                                                   out_i, H, W, B);
+      break;
+    case 1024:
+      action_kernel<1024><<<grid, 1024, 0, stream>>>(si, board, out_board,
+                                                     out_i, H, W, B);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

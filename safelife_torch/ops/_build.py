@@ -41,11 +41,20 @@ SIGNATURES = {
     },
     "env_step_kernels": {
         "sl_action": (_P, _P, _P, _P, _I, _I, _I, _P),
+        "sl_action_block": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
         "sl_advance": (_P, _P, _P, _P, _P,         # seed, si, sf, act_i, obs_i
                        _P, _P, _P, _P, _P, _P,     # board, goals, init, fresh
                        _P, _P, _P, _P, _P,         # outputs
                        _I, _I, _I, _I, _I, _I, _I, _I,  # H .. remove_white
                        _I, _I, _P),                # rule, draw, stream
+    },
+    "obs_micro": {
+        "sl_view_crop": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "sl_view_transpose": (_P, _P, _I, _I, _I, _P),
+        "sl_nb_sum_planes": (_P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "philox_words": {
+        "sl_philox_words": (_P, _P, _I, _I, _I, _P),
     },
 }
 

@@ -140,18 +140,36 @@ def action_plain(si, board):
         [ar, ac, orient, exited.to(torch.int32)])
 
 
-def apply_action(si, board):
-    """K1 on a CUDA board, its plain version on a CPU board."""
+# K1's block widths in threads (csrc/env_step_kernels.cu sl_action_block).
+ACTION_BLOCKS = (64, 128, 256, 512, 1024)
+
+
+def apply_action(si, board, block=None):
+    """K1 on a CUDA board, its plain version on a CPU board.
+
+    ``block=None`` is the main path's 128-thread launch; a width from
+    :data:`ACTION_BLOCKS` launches the same kernel at that block width
+    (the block sweep, counted per width)."""
     if board.device.type == "cpu":
         return action_plain(si, board)
     _build.check_cuda(board, si, dtypes=(torch.uint16, torch.int32))
+    if block is not None and block not in ACTION_BLOCKS:
+        raise ValueError(f"K1 runs at block widths {ACTION_BLOCKS}, "
+                         f"not {block}")
     h, w, b = board.shape
+    if si.dim() != 2 or si.shape[0] < 6 or si.shape[1] != b:
+        raise ValueError(f"K1 reads si rows 0-5 of (rows, {b}), not "
+                         f"{tuple(si.shape)}")
     out = torch.empty_like(board)
     act_i = torch.empty((4, b), dtype=torch.int32, device=board.device)
     if b:
-        _build.launch("K1_action", "env_step_kernels", "sl_action",
-                      si.data_ptr(), board.data_ptr(), out.data_ptr(),
-                      act_i.data_ptr(), h, w, b)
+        ptrs = (si.data_ptr(), board.data_ptr(), out.data_ptr(),
+                act_i.data_ptr(), h, w, b)
+        if block is None:
+            _build.launch("K1_action", "env_step_kernels", "sl_action", *ptrs)
+        else:
+            _build.launch(f"S2_action_block[{block}]", "env_step_kernels",
+                          "sl_action_block", *ptrs, block)
     return out, act_i
 
 

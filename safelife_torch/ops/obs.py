@@ -13,6 +13,8 @@ The crop is a direct gather ``view[i, j] = x[(rs + i) % H, (cs + j) % W]``
 per board; the GPU has no use for the TPU's barrel roll.
 """
 
+import functools
+
 import torch
 
 from .. import bits16
@@ -78,13 +80,21 @@ def put_exits(view, jy, jx, valid, vals):
     return out.to(view.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _channel_masks(channels, device):
+    """The channels' bits as int16 words on ``device``, made once: a
+    blocking copy from the host in every step would wait for the stream
+    and cannot be captured in a CUDA graph."""
+    return torch.tensor([1 << c for c in channels], dtype=torch.int32,
+                        device=device).to(torch.int16)
+
+
 def unpack_channels(view, channels):
     """(vh, vw, B) uint16 -> (B, vh, vw, C) uint8 binary channels.
 
     Transposes the packed view first and tests each channel's bit in
     16-bit words, so no intermediate is wider than the packed word."""
-    masks = torch.tensor([1 << c for c in channels], dtype=torch.int32,
-                         device=view.device).to(torch.int16)
+    masks = _channel_masks(tuple(channels), view.device)
     packed = bits16(view).permute(2, 0, 1).contiguous()
     return ((packed[..., None] & masks) != 0).view(torch.uint8)
 

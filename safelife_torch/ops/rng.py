@@ -20,9 +20,15 @@ So ``p = 0`` never spawns and ``p = 1`` always does where a cell is
 eligible.  Torch has no unsigned 32-bit multiply-high and a 32x32-bit
 product overflows int64, so each product is split into 16-bit halves;
 all words are int64 tensors holding values in ``[0, 2**32)``.
+
+:func:`philox_words` is the word field itself as a kernel (T1,
+``csrc/philox_words.cu``), the counterpart of the TPU's in-core PRNG
+probe.
 """
 
 import torch
+
+from . import _build
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
@@ -68,6 +74,34 @@ def spawn_words(seed, shape, device):
     key0 = torch.as_tensor(seed, device=device).reshape(1).to(
         torch.int64) & MASK32
     return philox4x32((cell, env, 0, 0), (key0, 0))[0]
+
+
+def _as_i32(words):
+    """int64 words in ``[0, 2**32)`` -> int32 tensors of the same bits."""
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def philox_words_plain(seed, shape):
+    """The plain version of T1: :func:`spawn_words` as int32 bits."""
+    return _as_i32(spawn_words(seed, shape, seed.device))
+
+
+def philox_words(seed, shape):
+    """The (H, W, B) int32 field of Philox words for ``seed`` (an int32
+    tensor of one element, whose device picks the path): kernel T1 on
+    CUDA, the plain version on the CPU."""
+    if seed.device.type == "cpu":
+        return philox_words_plain(seed, shape)
+    _build.check_cuda(seed, dtypes=(torch.int32,))
+    h, w, b = shape
+    if seed.numel() != 1 or h * w > 65535:
+        raise ValueError(f"T1 takes one seed and at most 65535 cells per "
+                         f"board, not {seed.numel()} and {h * w}")
+    out = torch.empty((h, w, b), dtype=torch.int32, device=seed.device)
+    if out.numel():
+        _build.launch("T1_philox_words", "philox_words", "sl_philox_words",
+                      seed.data_ptr(), out.data_ptr(), h, w, b)
+    return out
 
 
 def threshold(spawn_prob, bits):

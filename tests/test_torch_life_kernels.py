@@ -164,6 +164,17 @@ def _seed(s):
     return torch.tensor([s], dtype=torch.int32)
 
 
+@pytest.mark.parametrize("seed,shape", [
+    (7, (8, 1, 128)), (-5, (3, 5, 17)), (2**31 - 1, (26, 26, 4))])
+def test_philox_words_plain_is_spawn_words(seed, shape):
+    """T1's plain path: ``spawn_words`` as int32 bits, the field the spawn
+    draws slice."""
+    words = rng.philox_words(_seed(seed), shape)
+    assert words.dtype == torch.int32 and tuple(words.shape) == shape
+    assert torch.equal(words.to(torch.int64) & rng.MASK32,
+                       rng.spawn_words(_seed(seed), shape, "cpu"))
+
+
 @pytest.mark.parametrize("draw", ["u24", "pair"])
 def test_spawn_draws(draw):
     """The same seed reproduces, seeds differ, the rate at p = 0.3 is
