@@ -14,7 +14,9 @@ Phases, each an assertion that ends the run on failure:
    reset) along rollouts with resets on append-still, prune-still,
    append-dynamic, append-spawn, navigation, the goal-spawner stress bank
    and a general-pair bank, which take all five CA rules, spawn draws at
-   the banks' rates included; then the Philox draws (24-bit and paired):
+   the banks' rates included, and on 40x40 boards (a staged slab of 8
+   environments) and 64x64 boards (no slab fits: the streamed variant)
+   under every rule; then the Philox draws (24-bit and paired):
    same seed same field, seeds differ, rate within 5 sigma, edges exact;
    Then the kernels of the measurement scripts against their plain
    versions, bit for bit: S3-S5 (crop, transpose, neighbour sum) in every
@@ -78,16 +80,30 @@ SUITES = ("append-still", "prune-still", "prune-still-hard", "append-dynamic",
 RULE_BANKS = {"static_spawnless": "append-still", "static": "append-spawn",
               "simple": "append-dynamic", "spawn_simple": "stress",
               "general": "general"}
-# 32-bit operations outside the tensor cores, H100 SXM data sheet.
+# The card's peak rate for 32-bit operations outside the tensor cores
+# (NVIDIA's data sheet, H100 SXM: 67 T/s, an FMA counted as two): the
+# operation term of every bound, so that no bound exceeds the least time.
 PEAK_OPS = 67e12
-# Integer operations per board cell, counted from the kernel sources (a
-# lower bound: loads, stores and loop control are left out), and per
-# Philox draw (ten rounds of two multiplies, two multiply-highs, three
-# XORs and two key additions).
+# INT32 results an SM's ALU issues per clock on Hopper.  Times the SM
+# count and the highest SM clock (int_rate) it gives an estimate of the
+# time the counted integer operations take, printed beside each bound but
+# not one: IMAD can also issue on the FMA pipe, an SM issues up to 128
+# thread-instructions a clock, and one LOP3 or IADD3 does two or three of
+# the counted operations.
+INT32_PER_SM_CLOCK = 64
+# Integer operations per board cell, counted from the kernel sources as C
+# operations (loads, stores, address arithmetic and loop control left
+# out), and per Philox draw (ten rounds of two multiplies, two
+# multiply-highs, three XORs and two key additions).  K2/K3's counts hold
+# for the shared-memory slab design: the rule, scoring and side-effect
+# work per cell is the same, and what the slab removed (64-bit offsets, a
+# second pass over init) was address arithmetic and loads.
 RULE_OPS = {"static_spawnless": 75, "static": 105, "simple": 115,
             "spawn_simple": 165, "general": 170}
 OPS_PER_CELL = {
-    "K1_action": 6, "K4_advance_spawnless": 40, "K5_advance_with_field": 70,
+    # K1 copies the board with no arithmetic a cell; its decode is about
+    # 60 operations per environment, 0.1 a cell of a 26x26 board.
+    "K1_action": 0.1, "K4_advance_spawnless": 40, "K5_advance_with_field": 70,
     "K6_advance_simple": 40, "K7_advance_pair_fields": 130,
     "K8_advance_both": 140,
     **{f"K2_advance_fold[{r}]": n for r, n in RULE_OPS.items()},
@@ -165,6 +181,14 @@ def memory_rate(name):
     if "NVL" in name:
         return 3.9e12
     return 3.35e12  # H100 SXM
+
+
+def int_rate(smi_clock_mhz):
+    """The card's ALU rate for INT32 operations per second (an estimate,
+    not a bound): INT32_PER_SM_CLOCK per SM and clock at its highest SM
+    clock (``nvidia-smi`` clocks.max.sm)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_PER_SM_CLOCK * sms * smi_clock_mhz * 1e6
 
 
 def max_abs_err(got, want):
@@ -297,16 +321,58 @@ def check_k5_k8(dev, p=0.3):
           f"spawn_prob {p} ({fired} cells of K5's last soup spawned)")
 
 
+def misaligned(x):
+    """A contiguous copy of ``x`` whose storage starts 2 bytes past a
+    16-byte boundary: the kernels take their 2-byte path on it."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    bits16(out).copy_(bits16(x))
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
 def check_k1(dev):
+    """K1 on random states: the main shape, B % 8 != 0 (1001), less than
+    one block (7), one block and one (33), and a misaligned board."""
     rng_ = np.random.RandomState(2)
-    for shape in ((26, 26, 4096), (3, 5, 1001)):
+    for shape in ((26, 26, 4096), (3, 5, 1001), (26, 26, 7), (26, 26, 33)):
         for trial in range(3):
             si, board = action_inputs(rng_, shape, dev)
             assert_bit_equal(esk.apply_action(si, board),
                              esk.action_plain(si, board),
                              f"K1 {shape} trial {trial}")
+    si, board = action_inputs(rng_, (26, 26, 4096), dev)
+    board = misaligned(board)
+    assert_bit_equal(esk.apply_action(si, board), esk.action_plain(si, board),
+                     "K1 misaligned board")
     print("K1 action == plain: random states, all nine actions, "
-          "(26,26,4096) and (3,5,1001)")
+          "(26,26,4096), (3,5,1001), (26,26,7), (26,26,33) and a board "
+          "2 bytes off a 16-byte boundary")
+
+
+def rollout_check(env, bank, b, gen, what, misaligned_step=None, steps=10):
+    """K1 + K2/K3 against their plain versions along ``steps`` steps of
+    ``env`` at batch ``b`` (every input board 2 bytes off a 16-byte
+    boundary too at ``misaligned_step``); returns the resets seen."""
+    dev = bank.board.device
+    gen.manual_seed(3)
+    state = env.reset_all(bank, b, gen)
+    fresh = env.sample_fresh_levels(bank, b, gen)
+    resets = 0
+    for step in range(steps):
+        action = torch.randint(0, 9, (b,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        kw = env.fused_inputs(state, bank, action,
+                              fresh[1] if env.config.auto_reset else None,
+                              env.step_seed(gen))
+        assert_bit_equal(esk.fused_step(**kw), esk.fused_step_plain(**kw),
+                         f"K1+K2/K3 {what} step {step}")
+        if step == misaligned_step:
+            check_misaligned(kw, what)
+        state, ts = env.step(state, bank, action, gen, fresh_levels=fresh)
+        resets += int(ts.done.sum())
+    assert resets > 0, what
+    return resets
 
 
 def check_k2_k3(dev):
@@ -320,29 +386,68 @@ def check_k2_k3(dev):
                        (4096, dict(time_limit=6, view_shape=(33, 33))),
                        (4096, dict(time_limit=6, compute_obs=False)),
                        (4096, dict(time_limit=6, auto_reset=False)),
-                       (1001, dict(time_limit=6, view_shape=(9, 40)))):
+                       (1001, dict(time_limit=6, view_shape=(9, 40))),
+                       (7, dict(time_limit=6, view_shape=VIEW)),
+                       (33, dict(time_limit=6, view_shape=(33, 33))),
+                       (33, dict(time_limit=6, auto_reset=False))):
             env = BatchedSafeLifeEnv(EnvConfig(**cfg), device=dev)
-            gen.manual_seed(3)
-            state = env.reset_all(bank, b, gen)
-            fresh = env.sample_fresh_levels(bank, b, gen)
-            resets = 0
-            for step in range(10):
-                action = torch.randint(0, 9, (b,), generator=gen,
-                                       device=dev, dtype=torch.int32)
-                kw = env.fused_inputs(
-                    state, bank, action,
-                    fresh[1] if env.config.auto_reset else None,
-                    env.step_seed(gen))
-                assert_bit_equal(esk.fused_step(**kw),
-                                 esk.fused_step_plain(**kw),
-                                 f"K1+K2/K3 {suite} {cfg} step {step}")
-                state, ts = env.step(state, bank, action, gen,
-                                     fresh_levels=fresh)
-                resets += int(ts.done.sum())
-            assert resets > 0
+            resets = rollout_check(env, bank, b, gen, f"{suite} {cfg}",
+                                   5 if b == 4096 else None)
             print(f"K2/K3 advance == plain: {suite} ({rule_of(bank)} rule) "
                   f"B={b} {cfg}, 10 steps, {resets} resets")
     assert rules == set(esk.RULES), rules
+
+
+def large_bank(rule, side, dev, num_levels=8):
+    """Synthetic (side, side) levels that take ``rule``: the goal spawner
+    cleared for certified simple goals, spawners on the board for the
+    rules that draw."""
+    if rule == "general":
+        return synth.general_bank(num_levels, side, side, device=dev)
+    levels = [synth.simple_level(
+        side, side, seed=i, spawners=rule in ("static", "spawn_simple"),
+        dynamic_goals=rule in ("simple", "spawn_simple"))
+        for i in range(num_levels)]
+    if rule == "simple":
+        for level in levels:
+            level["goals"][(level["goals"] & C.SPAWNING) != 0] = 0
+    return loader.build_bank(levels, device=dev)
+
+
+def check_k2_k3_large(dev):
+    """K1 + K2/K3 on boards larger than the suites': 40x40 (a staged slab
+    of 8 environments) and 64x64 (no slab fits: the streamed variant)
+    under every rule, with and without auto-reset, ragged batches too."""
+    gen = torch.Generator(device=dev)
+    for side in (40, 64):
+        for rule in esk.RULES:
+            bank = large_bank(rule, side, dev)
+            assert rule_of(bank) == rule, (rule, rule_of(bank))
+            geo = esk.advance_geometry(side, side, rule, 1000)
+            assert geo["staged"] == (side == 40), geo
+            variant = (f"staged E={geo['envs']}" if geo["staged"]
+                       else "streamed")
+            for b, cfg in ((1000, dict(time_limit=6, view_shape=VIEW)),
+                           (33, dict(time_limit=6, view_shape=(33, 33))),
+                           (1000, dict(time_limit=6, auto_reset=False))):
+                env = BatchedSafeLifeEnv(EnvConfig(**cfg), device=dev)
+                resets = rollout_check(env, bank, b, gen,
+                                       f"{side}x{side} {rule} {cfg}",
+                                       steps=8)
+                print(f"K2/K3 advance == plain: {side}x{side} ({rule} rule, "
+                      f"{variant}) B={b} {cfg}, 8 steps, {resets} resets")
+
+
+def check_misaligned(kw, what):
+    """K1 + K2/K3 with every input board 2 bytes off a 16-byte boundary:
+    the 2-byte path of both kernels."""
+    args = esk.kernel_args(**kw)
+    for key in ("board", "goals", "init_board"):
+        args[key] = misaligned(args[key])
+    if args["fresh"] is not None:
+        args["fresh"] = tuple(map(misaligned, args["fresh"]))
+    assert_bit_equal(esk.run_kernels(args), esk.run_kernels(args, plain=True),
+                     f"K1+K2/K3 misaligned boards, {what}")
 
 
 def check_philox(dev, p=0.3):
@@ -420,14 +525,14 @@ def check_obs_micro(dev, b=SCRIPT_BATCH):
 def check_k1_blocks(dev):
     """K1 at every block width against its plain version."""
     rng_ = np.random.RandomState(8)
-    for shape in ((26, 26, SCRIPT_BATCH), (3, 5, 1001)):
+    for shape in ((26, 26, SCRIPT_BATCH), (3, 5, 1001), (26, 26, 33)):
         si, board = action_inputs(rng_, shape, dev)
         want = esk.action_plain(si, board)
         for block in esk.ACTION_BLOCKS:
-            assert_bit_equal(esk.apply_action(si, board, block=block), want,
+            assert_bit_equal(esk.apply_action(si, board, block), want,
                              f"K1 block {block} {shape}")
     print(f"K1 action == plain at block widths {esk.ACTION_BLOCKS}: random "
-          f"states, (26,26,{SCRIPT_BATCH}) and (3,5,1001)")
+          f"states, (26,26,{SCRIPT_BATCH}), (3,5,1001) and (26,26,33)")
 
 
 def check_t1(dev):
@@ -697,16 +802,26 @@ def step_inputs(bank, dev, seed=4):
     return fold, noreset, board1, act_i
 
 
-def kernel_timings(banks, dev, rate):
+def bound_and_estimate(moved, ops, rate, int32_rate):
+    """(bound ms, "bytes" or "operations", INT32 estimate ms): the bound
+    is the larger of ``moved`` bytes at the memory ``rate`` and ``ops`` at
+    PEAK_OPS; the estimate is ``ops`` at ``int32_rate``."""
+    bytes_ms = moved / rate * 1e3
+    ops_ms = ops / PEAK_OPS * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), bound_by, ops / int32_rate * 1e3
+
+
+def kernel_timings(banks, dev, rate, int32_rate):
     """{kernel: (max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
     runs = {}
 
     def adv(args, fn, board1, act_i):
-        return lambda: fn(args["si"], args["sf"], act_i, args["obs_i"],
-                          board1, args["goals"], args["init_board"],
-                          args["fresh"], args["time_limit"], args["obs_view"],
-                          args["remove_white_goals"], args["rule"],
-                          args["draw"], args["seed"])
+        return lambda: fn(
+            args["si"], args["sf"], act_i, args["obs_i"], board1,
+            args["goals"], args["init_board"], args["fresh"],
+            args["time_limit"], args["obs_view"], args["remove_white_goals"],
+            args["rule"], args["draw"], args["seed"])
 
     for rule, name in RULE_BANKS.items():
         bank = banks[name] if name in banks else load_bank(name, dev)
@@ -758,17 +873,17 @@ def kernel_timings(banks, dev, rate):
         err = assert_bit_equal(got, want, f"{name} at the main shapes")
         ms = time_ms(kernel, 50)
         plain_ms = time_ms(plain, 3)
-        bytes_ms = moved / rate * 1e3
         cells = 26 * 26 * MAIN_BATCH
         ops = OPS_PER_CELL[name] * cells + OPS_PER_DRAW * draws
-        ops_ms = ops / PEAK_OPS * 1e3
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        out[name] = (err, ms, plain_ms, max(bytes_ms, ops_ms), bound_by)
+        bound, bound_by, int32_ms = bound_and_estimate(moved, ops, rate,
+                                                     int32_rate)
+        out[name] = (err, ms, plain_ms, bound, bound_by)
         print(f"timing {name}: max abs err {err} vs plain; "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms), "
-              f"bound {max(bytes_ms, ops_ms):.4f} ms by {bound_by} "
+              f"bound {bound:.4f} ms by {bound_by} "
               f"({moved / 1e6:.1f} MB, {ops / 1e9:.2f} G ops, {draws} draw "
-              f"cells), {bytes_ms / ms:.1%} of the memory rate; {what}")
+              f"cells), {bound / ms:.1%} of the bound; INT32 estimate "
+              f"{int32_ms:.4f} ms ({int32_ms / ms:.1%}); {what}")
     return out
 
 
@@ -970,7 +1085,7 @@ def script_runs(dev):
     return runs
 
 
-def script_timings(dev, rate):
+def script_timings(dev, rate, int32_rate):
     """{kernel: (max_abs_err, ms, plain_ms, bound_ms, bound_by,
     library_ms)} at the scripts' shapes."""
     out = {}
@@ -983,23 +1098,22 @@ def script_timings(dev, rate):
         plain_ms = time_chain(plain, x, 3, False)
         library_ms = (time_chain(lambda _: library(), None, 200, False,
                                  graph=True) if library else None)
-        bytes_ms = moved / rate * 1e3
-        ops_ms = ops / PEAK_OPS * 1e3
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        bound = max(bytes_ms, ops_ms)
+        bound, bound_by, int32_ms = bound_and_estimate(moved, ops, rate,
+                                                     int32_rate)
         out[name] = (err, ms, plain_ms, bound, bound_by, library_ms)
         lib = f", library {library_ms:.4f} ms" if library else ""
         print(f"timing {name}: max abs err {err} vs plain; {ms:.4f} ms in "
               f"a CUDA graph, {loop_ms:.4f} ms launched from Python "
               f"(plain {plain_ms:.4f} ms{lib}), bound {bound:.6f} ms by "
               f"{bound_by} ({moved / 1e6:.3f} MB, {ops / 1e9:.3f} G ops), "
-              f"{bytes_ms / ms:.1%} of the memory rate; {what}")
+              f"{bound / ms:.1%} of the bound; INT32 estimate "
+              f"{int32_ms:.6f} ms; {what}")
     return out
 
 
 def k1_state_probe(bank, dev):
     """K1 at the main path's width on the phase-6 state, in a CUDA graph:
-    as it is, with every agent moved to (0, 0) (the four cells a thread
+    as it is, with every agent moved to (0, 0) (the four cells the decode
     reads around its agent are then one address for the whole warp), and
     with the board fed back (each launch reads the last one's output)."""
     fold = step_inputs(bank, dev)[0]
@@ -1014,6 +1128,26 @@ def k1_state_probe(bank, dev):
                         chain, graph=True)
         print(f"K1 state probe, (26,26,{MAIN_BATCH}) append-still one step "
               f"in: {ms:.4f} ms, {what}")
+
+
+def spills(log):
+    """The K1 and K2/K3 instantiations of the ``-Xptxas -v`` log that
+    spill, as (entry function, ptxas line)."""
+    kernel, seen, out = None, 0, []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line if ("action_kernel" in line
+                              or "advance_kernel" in line) else None
+        elif kernel and "spill stores" in line:
+            seen += 1
+            if " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                out.append((kernel.split("'")[1], line.strip()))
+    # 5 K1 block widths and 7 rule pairs x 3 modes x staged or streamed
+    # of K2/K3.
+    assert seen == 47, f"{seen} K1/K2/K3 instantiations in the build log"
+    print(f"build log: {seen} K1 and K2/K3 instantiations, "
+          f"{len(out)} of them spill {out}")
+    return out
 
 
 def main():
@@ -1031,14 +1165,26 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {line.strip()}")
+    # A spill fails the run at its end, after every measurement.
+    spilled = spills(built["env_step_kernels"][1])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
     kind = torch.cuda.get_device_name(0)
     rate = memory_rate(kind)
+    int32_rate = int_rate(clock)
+    print(f"bounds: memory {rate / 1e12:.2f} TB/s, 32-bit operations "
+          f"{PEAK_OPS / 1e12:.0f} T/s; INT32 estimate {int32_rate / 1e12:.2f}"
+          f" T ops/s ({INT32_PER_SM_CLOCK} a clock x "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x"
+          f" {clock:.0f} MHz)")
 
     print("kernels against their plain versions: tolerance 0, bit for bit "
           "(integer state; the reward is a float32 difference of integers; "
@@ -1048,6 +1194,7 @@ def main():
     check_k5_k8(dev)
     check_k1(dev)
     check_k2_k3(dev)
+    check_k2_k3_large(dev)
     check_philox(dev)
     check_obs_micro(dev)
     check_k1_blocks(dev)
@@ -1062,14 +1209,14 @@ def main():
     for name, (steps_per_s, _) in results.items():
         print(f"env-steps/s {name} {steps_per_s:.0f} on {smi}")
     t = time.perf_counter()
-    timings = kernel_timings(banks, dev, rate)
+    timings = kernel_timings(banks, dev, rate, int32_rate)
     for name, (_, state) in results.items():
         profile(name, banks[name], state)
     print(f"phase 6: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     paths = dict(entry_points(dev), bench=launches)
-    script = script_timings(dev, rate)
+    script = script_timings(dev, rate, int32_rate)
     still = banks["append-still"]
     k1_state_probe(still, dev)
     # The step that stepbench's first row times in a graph, launched from
@@ -1097,6 +1244,7 @@ def main():
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms))
     print(json.dumps({"kernels": kernels}))
+    assert not spilled, f"K1/K2/K3 instantiations spill: {spilled}"
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

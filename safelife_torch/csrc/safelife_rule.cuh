@@ -3,8 +3,10 @@
 //
 // Boards are (H, W, B) uint16 with the environment batch innermost, so the
 // threads of a warp, one environment each, read cell (r, c) of 32
-// neighbouring environments in one coalesced 64-byte access.  All
-// arithmetic is int32, as in the plain PyTorch versions.
+// neighbouring environments in one coalesced 64-byte access (RowStream,
+// K4-K8), or from a slab of E environments staged in shared memory
+// (SlabStream, K2/K3).  All arithmetic is int32, as in the plain PyTorch
+// versions.
 //
 // The rule of a cell needs counts over its 3x3 torus neighbourhood.  Each
 // rule below is a struct with a count Word, pack(cell) -> Word, and
@@ -209,6 +211,59 @@ struct RowStream<StaticRule> {
   template <class Spawn>
   __device__ __forceinline__ int advance(int c, Spawn) {
     return mid[c * B];
+  }
+};
+
+// RowStream over a (H * W, S) slab, environment e: the same sliding 3x3
+// sum along row r, from column c0 on (K2/K3's layout,
+// csrc/env_step_kernels.cu).  Off is the offset type: int for a slab of E
+// environments in shared memory (S = E), long long for a board in device
+// memory (S = B).  Call advance(c, spawn) for c = c0, c0 + 1, ... in
+// order, at most to the end of the row.
+template <class Rule, class Off = int>
+struct SlabStream {
+  using Word = typename Rule::Word;
+  const uint16_t* up;
+  const uint16_t* mid;
+  const uint16_t* dn;
+  Off S;
+  int W;
+  Word prev, cur;
+
+  __device__ __forceinline__ SlabStream(const uint16_t* slab, int r, int H,
+                                        int W_, Off S_, int e, int c0)
+      : S(S_), W(W_) {
+    const Off row = W * S;
+    up = slab + (r == 0 ? H - 1 : r - 1) * row + e;
+    mid = slab + r * row + e;
+    dn = slab + (r + 1 == H ? 0 : r + 1) * row + e;
+    prev = column(c0 == 0 ? W - 1 : c0 - 1);
+    cur = column(c0);
+  }
+  __device__ __forceinline__ Word column(int c) const {
+    const Off o = c * S;
+    return Rule::pack(up[o]) + Rule::pack(mid[o]) + Rule::pack(dn[o]);
+  }
+  template <class Spawn>
+  __device__ __forceinline__ int advance(int c, Spawn spawn) {
+    const Word next = column(c + 1 < W ? c + 1 : 0);
+    const int out = Rule::rule(mid[c * S], prev + cur + next, spawn);
+    prev = cur;
+    cur = next;
+    return out;
+  }
+};
+
+template <class Off>
+struct SlabStream<StaticRule, Off> {
+  const uint16_t* mid;
+  Off S;
+  __device__ __forceinline__ SlabStream(const uint16_t* slab, int r, int,
+                                        int W, Off S_, int e, int)
+      : mid(slab + r * W * S_ + e), S(S_) {}
+  template <class Spawn>
+  __device__ __forceinline__ int advance(int c, Spawn) {
+    return mid[c * S];
   }
 };
 

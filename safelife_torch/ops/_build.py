@@ -40,13 +40,14 @@ SIGNATURES = {
         "sl_advance_both": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "env_step_kernels": {
-        "sl_action": (_P, _P, _P, _P, _I, _I, _I, _P),
-        "sl_action_block": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "sl_action": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "sl_action_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "sl_advance": (_P, _P, _P, _P, _P,         # seed, si, sf, act_i, obs_i
                        _P, _P, _P, _P, _P, _P,     # board, goals, init, fresh
                        _P, _P, _P, _P, _P,         # outputs
                        _I, _I, _I, _I, _I, _I, _I, _I,  # H .. remove_white
-                       _I, _I, _P),                # rule, draw, stream
+                       _I, _I,                     # rule, draw
+                       _I, _I, _I, _I, _I, _P),    # geometry, stream
     },
     "obs_micro": {
         "sl_view_crop": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -83,27 +84,33 @@ def _library_path(name):
 
 def build_all():
     """Compile every library that is missing, one ``nvcc`` per source, all
-    in parallel.  Returns {name: (path, nvcc output)}; raises on failure."""
+    in parallel.  Returns {name: (path, nvcc output)}, the output kept
+    beside each library for a later call (a library without it is built
+    again); raises on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
     for name in SIGNATURES:
         path = _library_path(name)
-        if os.path.exists(path):
+        if os.path.exists(path) and os.path.exists(path + ".log"):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, name + ".cu")]
         jobs[name] = (path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = {}
     for name, (path, tmp, proc) in jobs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        with open(path + ".log", "w") as f:
+            f.write(out)
         os.replace(tmp, path)
-        logs[name] = out
-    return {name: (_library_path(name), logs.get(name, "(cached)"))
-            for name in SIGNATURES}
+    built = {}
+    for name in SIGNATURES:
+        path = _library_path(name)
+        with open(path + ".log") as f:
+            built[name] = (path, f.read())
+    return built
 
 
 def library(name):

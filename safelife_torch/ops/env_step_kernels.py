@@ -42,9 +42,23 @@ DRAWS = ("none", "u24", "pair")
 
 _DR = (-1, 0, 1, 0)
 _DC = (0, 1, 0, -1)
-# K2 assembles the views of a block of 32 environments in shared memory:
-# 2 bytes per cell and environment, within 227 KB less its 1.5 KB of sums.
-_MAX_VIEW_CELLS = (232448 - 1536) // 64
+
+# K2/K3's launch limits, which csrc/env_step_kernels.cu checks (MAX_ENVS,
+# MAX_THREADS, MAX_SEG, MAX_CELLS): staged slab widths E, widest first;
+# threads a block; cells a row segment; cells a thread of a staged block
+# (its exit bit mask).
+ADVANCE_ENVS = (32, 16, 8)
+ADVANCE_MAX_THREADS = 512
+_MAX_SEG = 32
+_MAX_CELLS_PER_THREAD = 64
+# Shared memory on the H100: the most a block may use (227 KB), an SM's
+# (228 KB, of which each resident block reserves 1 KB), and the kernel's
+# static arrays: four sums and six values per environment (int32) and one
+# word of reset bits.
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+_SMEM_RESERVED = 1024
+_ADVANCE_STATIC_SMEM = (4 + 6) * 4 * ADVANCE_ENVS[0] + 4
 
 # Each goal-color row of the 8x8 point table packed into one int32: entry
 # value+3 (in [0, 8]) in bits [4c, 4c+4).  csrc/safelife_rule.cuh holds
@@ -140,8 +154,18 @@ def action_plain(si, board):
         [ar, ac, orient, exited.to(torch.int32)])
 
 
-# K1's block widths in threads (csrc/env_step_kernels.cu sl_action_block).
+# K1's block widths in threads (csrc/env_step_kernels.cu sl_action_block;
+# a block of each width owns 16, 32 or 64 environments, action_envs there).
 ACTION_BLOCKS = (64, 128, 256, 512, 1024)
+
+
+def vector_path(b, *tensors):
+    """Whether the kernels move (H, W, ``b``) boards in 16-byte vectors: 8
+    environments of a cell are 16 bytes, aligned where ``b % 8 == 0`` and
+    every tensor starts on a 16-byte boundary.  Otherwise the same kernels
+    take 2-byte accesses."""
+    return b % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors if t is not None)
 
 
 def apply_action(si, board, block=None):
@@ -149,7 +173,8 @@ def apply_action(si, board, block=None):
 
     ``block=None`` is the main path's 128-thread launch; a width from
     :data:`ACTION_BLOCKS` launches the same kernel at that block width
-    (the block sweep, counted per width)."""
+    (the block sweep, counted per width).  Boards move in 16-byte vectors
+    on the :func:`vector_path`."""
     if board.device.type == "cpu":
         return action_plain(si, board)
     _build.check_cuda(board, si, dtypes=(torch.uint16, torch.int32))
@@ -165,11 +190,13 @@ def apply_action(si, board, block=None):
     if b:
         ptrs = (si.data_ptr(), board.data_ptr(), out.data_ptr(),
                 act_i.data_ptr(), h, w, b)
+        vec = int(vector_path(b, board, out))
         if block is None:
-            _build.launch("K1_action", "env_step_kernels", "sl_action", *ptrs)
+            _build.launch("K1_action", "env_step_kernels", "sl_action", *ptrs,
+                          vec)
         else:
             _build.launch(f"S2_action_block[{block}]", "env_step_kernels",
-                          "sl_action_block", *ptrs, block)
+                          "sl_action_block", *ptrs, block, vec)
     return out, act_i
 
 
@@ -194,6 +221,66 @@ def pick_draw(rule, spawnless):
     if spawnless:
         return "none"
     return "pair" if rule in ("spawn_simple", "general") else "u24"
+
+
+def _slab_geometry(h, w, rule, e):
+    """The staged launch of K2/K3 on (``h``, ``w``) boards with slabs of
+    ``e`` environments (see :func:`advance_geometry`); raises
+    ``ValueError`` where such a slab does not fit the kernel's limits."""
+    if e not in ADVANCE_ENVS:
+        raise ValueError(f"K2/K3 stage slabs of {ADVANCE_ENVS} environments,"
+                         f" not {e}")
+    slabs = 4 if rule in ("static_spawnless", "static") else 5
+    seg = -(-w // -(-w // _MAX_SEG))
+    items = h * -(-w // seg)
+    per = max(1, -(-e * items // ADVANCE_MAX_THREADS))
+    slots = -(-items // per)
+    smem = slabs * h * w * e * 2
+    if (per * seg > _MAX_CELLS_PER_THREAD
+            or smem + _ADVANCE_STATIC_SMEM > SMEM_PER_BLOCK):
+        raise ValueError(
+            f"K2/K3 stage {slabs} slabs of ({h}, {w}) boards: a slab of {e} "
+            f"environments does not fit in {SMEM_PER_BLOCK} bytes of shared "
+            f"memory and {ADVANCE_MAX_THREADS} threads")
+    return dict(envs=e, slots=slots, seg=seg, threads=e * slots, smem=smem,
+                blocks=SMEM_PER_SM // (smem + _ADVANCE_STATIC_SMEM
+                                       + _SMEM_RESERVED),
+                staged=True)
+
+
+def advance_geometry(h, w, rule, b, vector=True):
+    """The launch geometry of K2/K3 on (``h``, ``w``, ``b``) boards.
+
+    A staged block keeps a slab of E environments of the board, goal board
+    and initial board in shared memory, with an output slab for the
+    advanced board and, under the dynamic goal rules, one for the advanced
+    goals: ``smem`` bytes.  Each thread takes row segments of ``seg``
+    cells of one environment, ``slots`` threads an environment, at most 64
+    cells a thread.  E is the widest of :data:`ADVANCE_ENVS` that leaves
+    room for two blocks on an SM, else the widest that fits.  ``vector``
+    is the 16-byte path (:func:`vector_path` of the boards), kept only
+    where ``b % 8 == 0``.  Where no slab fits, the streamed variant runs
+    instead: 32 environments a block on the boards in device memory, 2
+    bytes a thread, no shared slabs (``staged`` false).
+
+    Returns a dict of envs, slots, seg, threads, smem, blocks (resident
+    blocks an SM holds by shared memory; None when streamed), staged and
+    vector.
+    """
+    fits = []
+    for e in ADVANCE_ENVS:
+        try:
+            fits.append(_slab_geometry(h, w, rule, e))
+        except ValueError:
+            continue
+    if fits:
+        geo = max(fits, key=lambda g: (min(g["blocks"], 2), g["envs"]))
+        return dict(geo, vector=bool(vector and b % 8 == 0))
+    e = ADVANCE_ENVS[0]
+    seg = -(-w // -(-w // _MAX_SEG))
+    slots = min(h * -(-w // seg), ADVANCE_MAX_THREADS // e)
+    return dict(envs=e, slots=slots, seg=seg, threads=e * slots, smem=0,
+                blocks=None, staged=False, vector=False)
 
 
 def _advance_rule(board, goals, rule, draw, seed, spawn_prob):
@@ -321,7 +408,8 @@ def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
             time_limit, obs_view, remove_white_goals=True,
             rule="static_spawnless", draw="none", seed=None):
     """K2 (``time_limit > 0``) or K3 on CUDA boards, the plain version on
-    CPU boards; arguments and results as :func:`advance_plain`."""
+    CPU boards; arguments and results as :func:`advance_plain`, launched
+    with :func:`advance_geometry`."""
     if board1.device.type == "cpu":
         return advance_plain(si, sf, act_i, obs_i, board1, goals,
                              init_board, fresh, time_limit, obs_view,
@@ -335,9 +423,6 @@ def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
         raise ValueError("all boards must share one (H, W, B) shape")
     if obs_view is not None and not do_reset:
         raise ValueError("the view is emitted on the fold path only")
-    if obs_view is not None and obs_view[0] * obs_view[1] > _MAX_VIEW_CELLS:
-        raise ValueError(f"K2 holds views of up to {_MAX_VIEW_CELLS} cells "
-                         f"in shared memory, not {obs_view}")
     if draw != "none":
         _build.check_cuda(board1, seed, dtypes=(torch.uint16, torch.int32))
     if do_reset:
@@ -355,15 +440,19 @@ def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
     out_i = torch.empty((5, b), dtype=torch.int32, device=board1.device)
     fb, fg, fi = fresh if do_reset else (None, None, None)
     kernel = "K2_advance_fold" if do_reset else "K3_advance_noreset"
+    boards = (board1, goals, init_board, fb, fg, fi, out_board, out_goals,
+              out_init, view)
+    geo = advance_geometry(h, w, rule, b, vector_path(b, *boards))
     if b:
         _build.launch(
             f"{kernel}[{rule}]", "env_step_kernels", "sl_advance",
             *map(_build.ptr, (seed if draw != "none" else None, si, sf,
-                              act_i if do_reset else None, obs_i,
-                              board1, goals, init_board, fb, fg, fi,
-                              out_board, out_goals, out_init, view, out_i)),
+                              act_i if do_reset else None, obs_i) + boards
+                 + (out_i,)),
             h, w, b, int(time_limit), vh, vw, num_exits,
-            int(remove_white_goals), RULES.index(rule), DRAWS.index(draw))
+            int(remove_white_goals), RULES.index(rule), DRAWS.index(draw),
+            geo["envs"], geo["slots"], geo["seg"], int(geo["vector"]),
+            int(geo["staged"]))
     return out_board, out_goals, out_init, view, out_i
 
 
