@@ -8,8 +8,11 @@ Phases, each an assertion that ends the run on failure:
 1. build every kernel from ``safelife_torch/csrc`` (one ``nvcc`` each, in
    parallel);
 2. print the card's name and power limit (``nvidia-smi``);
-3. each kernel against its plain version on the card, bit for bit: K4 on
-   spawnless soups; K5-K8 on soups with spawners at spawn_prob 0.3; K1 on
+3. each kernel against its plain version on the card, bit for bit: K4-K8
+   on soups (spawners and spawn_prob 0.3 for K5-K8) at (26, 26, 4096),
+   ragged batches 4097, 1001, 33 and 7, and 40x40, 64x64 and 72x72 boards
+   (each kernel both staged and streamed), every shape also on tensors 2
+   bytes off a 16-byte boundary; K1 on
    random states and all nine actions; K2 (fold and view) and K3 (no
    reset) along rollouts with resets on append-still, prune-still,
    append-dynamic, append-spawn, navigation, the goal-spawner stress bank
@@ -20,7 +23,9 @@ Phases, each an assertion that ends the run on failure:
    same seed same field, seeds differ, rate within 5 sigma, edges exact;
    Then the kernels of the measurement scripts against their plain
    versions, bit for bit: S3-S5 (crop, transpose, neighbour sum) in every
-   variant at (26, 26, 16384), K1 at every block width, T1 (the Philox
+   variant at (26, 26, 16384) and ragged batches (S3 at views 15x15,
+   33x33 and 9x31, misaligned, and streamed on 128x128 boards), K1 at
+   every block width, T1 (the Philox
    word field; its word at the zero counter and key against Random123's
    known answer); and the integrity guard (``utils/integrity.py``)
    on the card: both checks pass and a corrupted output raises;
@@ -41,7 +46,9 @@ Phases, each an assertion that ends the run on failure:
    (S1-S5, T1) beside bounds, plain versions and library calls, K1's
    time on one state with its agents where they are and moved to a corner,
    and a profile of stepbench's full step at its batch;
-8. one JSON line listing the kernels, and last the result line.
+8. one JSON line listing the kernels, and last the result line; before
+   it the run fails if the build log shows a K1-K8 or S3 instantiation
+   that spills.
 
 Exits nonzero, printing no result, when no CUDA device is present.
 """
@@ -264,61 +271,92 @@ def as_i32(board):
 # Phase 3: each kernel against its plain version.
 # ---------------------------------------------------------------------------
 
-def check_k4(dev):
-    rng_ = np.random.RandomState(1)
-    for shape, steps in (((26, 26, 4096), 6), ((7, 3, 300), 4)):
-        board = torch.as_tensor(soup(rng_, shape, SPAWNLESS_FLAGS), device=dev)
-        for step in range(steps):
-            got = life_kernels.advance_spawnless(board)
-            assert_bit_equal([got], [life_kernels.advance_spawnless_plain(
-                board)], f"K4 {shape} step {step}")
-            board = got
-    print("K4 advance_spawnless == plain: (26,26,4096) x 6 steps, "
-          "(7,3,300) x 4 steps")
+# The shapes K4-K8 are held at: the main one, ragged batches, and boards
+# of 40x40 (a staged slab on every rule), 64x64 (staged on the one-word
+# rules K4 and K6, streamed on the others) and 72x72 (streamed on every
+# rule).
+RULE_SHAPES = ((26, 26, 4096), (26, 26, 4097), (26, 26, 1001), (26, 26, 33),
+               (26, 26, 7), (7, 3, 300), (40, 40, 1000), (64, 64, 256),
+               (72, 72, 96))
 
 
-def check_k5_k8(dev, p=0.3):
-    """K5-K8 along 6-step soups with spawners, Philox fields at ``p``."""
+def rule_steps(dev, shape, rng_, p, steps, place=lambda x: x):
+    """K4-K8 along ``steps`` steps of soups with spawners at ``shape``
+    (``place`` applied to every input), each against its plain version;
+    returns each kernel's launch geometry and the cells K5 spawned."""
+    full = SPAWNLESS_FLAGS + (C.SPAWNING,)
+
+    def board(flags, density=0.15):
+        return place(torch.as_tensor(soup(rng_, shape, flags, density),
+                                     device=dev))
+
+    b4, b5, b7, b8 = (board(f) for f in (SPAWNLESS_FLAGS, full, full, full))
+    g6 = board(SIMPLE_FLAGS, 0.2)
+    g7 = board(SPAWN_SIMPLE_FLAGS, 0.2)
+    g8 = board(full)
+    probs = torch.full((shape[2],), p, dtype=torch.float32, device=dev)
+    fired = 0
+    for step in range(steps):
+        seed = torch.tensor([100 + step], dtype=torch.int32, device=dev)
+        f5 = place(rng.spawn_field24(seed, probs, shape))
+        fb, fg = map(place, rng.spawn_field_pair(seed, probs, shape))
+        what = f"{shape} step {step}"
+        got = life_kernels.advance_spawnless(b4)
+        assert_bit_equal([got], [life_kernels.advance_spawnless_plain(b4)],
+                         f"K4 {what}")
+        b4 = place(got)
+        got = life_kernels.advance_with_field(b5, f5)
+        assert_bit_equal([got], [life_kernels.advance_with_field_plain(
+            b5, f5)], f"K5 {what}")
+        fired += int((bits16(got) != bits16(
+            life_kernels.advance_with_field_plain(
+                b5, torch.zeros_like(f5)))).sum())
+        b5 = place(got)
+        got = life_kernels.advance_simple(g6)
+        assert_bit_equal([got], [life_kernels.advance_simple_plain(g6)],
+                         f"K6 {what}")
+        g6 = place(got)
+        got = life_kernels.advance_pair_spawnsimple_with_fields(
+            b7, fb, g7, fg)
+        assert_bit_equal(
+            got, life_kernels.advance_pair_spawnsimple_with_fields_plain(
+                b7, fb, g7, fg), f"K7 {what}")
+        b7, g7 = map(place, got)
+        got = life_kernels.advance_both(b8, g8, probs, seed)
+        assert_bit_equal(got, life_kernels.advance_both_plain(
+            b8, g8, probs, seed), f"K8 {what}")
+        b8, g8 = map(place, got)
+    vec = _build.vector_path(shape[2], b4)
+    geos = {k: life_kernels.rule_geometry(*shape[:2], k, shape[2], vec)
+            for k in life_kernels.RULE_WORD_BYTES}
+    return geos, fired
+
+
+def variant(geo):
+    """How a staged kernel ran: its slab width and access path."""
+    if not geo["staged"]:
+        return "streamed"
+    return f"E={geo['envs']} " + ("vec" if geo["vector"] else "2-byte")
+
+
+def check_rule_kernels(dev, p=0.3):
+    """K4-K8 against their plain versions at every shape of RULE_SHAPES,
+    each on tensors 2 bytes off a 16-byte boundary too (the 2-byte path),
+    spawn fields and Philox draws at ``p``; both variants on every
+    kernel."""
     rng_ = np.random.RandomState(5)
-    for shape in ((26, 26, 4096), (7, 3, 300)):
-        full = SPAWNLESS_FLAGS + (C.SPAWNING,)
-        b5 = torch.as_tensor(soup(rng_, shape, full), device=dev)
-        g6 = torch.as_tensor(soup(rng_, shape, SIMPLE_FLAGS, 0.2), device=dev)
-        b7 = torch.as_tensor(soup(rng_, shape, full), device=dev)
-        g7 = torch.as_tensor(soup(rng_, shape, SPAWN_SIMPLE_FLAGS, 0.2),
-                             device=dev)
-        b8 = torch.as_tensor(soup(rng_, shape, full), device=dev)
-        g8 = torch.as_tensor(soup(rng_, shape, full), device=dev)
-        probs = torch.full((shape[2],), p, dtype=torch.float32, device=dev)
-        fired = 0
-        for step in range(6):
-            seed = torch.tensor([100 + step], dtype=torch.int32, device=dev)
-            f5 = rng.spawn_field24(seed, probs, shape)
-            fb, fg = rng.spawn_field_pair(seed, probs, shape)
-            got = life_kernels.advance_with_field(b5, f5)
-            assert_bit_equal([got], [life_kernels.advance_with_field_plain(
-                b5, f5)], f"K5 {shape} step {step}")
-            fired += int((bits16(got) != bits16(
-                life_kernels.advance_with_field_plain(
-                    b5, torch.zeros_like(f5)))).sum())
-            b5 = got
-            got = life_kernels.advance_simple(g6)
-            assert_bit_equal([got], [life_kernels.advance_simple_plain(g6)],
-                             f"K6 {shape} step {step}")
-            g6 = got
-            got = life_kernels.advance_pair_spawnsimple_with_fields(
-                b7, fb, g7, fg)
-            assert_bit_equal(
-                got, life_kernels.advance_pair_spawnsimple_with_fields_plain(
-                    b7, fb, g7, fg), f"K7 {shape} step {step}")
-            b7, g7 = got
-            got = life_kernels.advance_both(b8, g8, probs, seed)
-            assert_bit_equal(got, life_kernels.advance_both_plain(
-                b8, g8, probs, seed), f"K8 {shape} step {step}")
-            b8, g8 = got
-        assert fired > 0, "no spawn fired in K5's run"
-    print(f"K5-K8 == plain: (26,26,4096) and (7,3,300) soups x 6 steps, "
-          f"spawn_prob {p} ({fired} cells of K5's last soup spawned)")
+    variants = collections.defaultdict(set)
+    for shape in RULE_SHAPES:
+        steps = 6 if shape == (26, 26, 4096) else 2
+        for place, how in ((lambda x: x, ""), (misaligned, ", misaligned")):
+            geos, fired = rule_steps(dev, shape, rng_, p, steps, place)
+            assert fired > 0, f"no spawn fired in K5's run at {shape}"
+            for kernel, geo in geos.items():
+                variants[kernel].add(geo["staged"])
+            print(f"K4-K8 == plain: {shape}{how}, {steps} steps, spawn_prob "
+                  f"{p} ({fired} cells of K5 spawned); " + ", ".join(
+                      f"{k[:2]} {variant(g)}" for k, g in geos.items()))
+    assert all(v == {True, False} for v in variants.values()), variants
 
 
 def misaligned(x):
@@ -485,7 +523,9 @@ def check_philox(dev, p=0.3):
 
 def check_obs_micro(dev, b=SCRIPT_BATCH):
     """S3-S5 in every variant against their plain versions: full-range
-    and small boards, shifts beyond the board both ways, odd batches."""
+    and small boards, shifts beyond the board both ways, odd batches; S3
+    also on boards 2 bytes off a 16-byte boundary (the 2-byte path) and
+    on 128x128 boards (no slab fits: the streamed variant)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
 
@@ -493,16 +533,20 @@ def check_obs_micro(dev, b=SCRIPT_BATCH):
         return torch.randint(0, high, shape, generator=gen, device=dev,
                              dtype=torch.int32).to(torch.uint16)
 
-    for batch in (b, 1004, 1001):
+    def shifts(batch):
+        return torch.randint(-40, 40, (2, batch), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    for batch in (b, 1004, 1001, 33, 7):
         x = u16((26, 26, batch))
-        si = torch.randint(-40, 40, (2, batch), generator=gen, device=dev,
-                           dtype=torch.int32)
+        si = shifts(batch)
         for compute in om.COMPUTES:
-            for view in (om.VIEW, (9, 31)):
-                assert_bit_equal(
-                    [om.view_crop(x, si, compute, view)],
-                    [om.view_crop_plain(x, si, compute, view)],
-                    f"S3 {compute} view {view} B={batch}")
+            for view in (om.VIEW, (33, 33), (9, 31)):
+                for board in (x, misaligned(x)):
+                    assert_bit_equal(
+                        [om.view_crop(board, si, compute, view)],
+                        [om.view_crop_plain(board, si, compute, view)],
+                        f"S3 {compute} view {view} B={batch}")
             window = bits16(x)[:15, :15].contiguous().view(torch.uint16)
             for v in (window, u16((33, 33, batch))):
                 assert_bit_equal([om.view_transpose(v, compute)],
@@ -518,8 +562,18 @@ def check_obs_micro(dev, b=SCRIPT_BATCH):
                         [om.nb_sum_planes(board, dtype, planes)],
                         [om.nb_sum_planes_plain(board, dtype, planes)],
                         f"S5 {dtype} x{planes} B={batch}")
+    big = u16((128, 128, 64))
+    assert not om.crop_geometry(128, 128, 64)["staged"]
+    si = shifts(64)
+    for compute in om.COMPUTES:
+        assert_bit_equal([om.view_crop(big, si, compute)],
+                         [om.view_crop_plain(big, si, compute)],
+                         f"S3 {compute} streamed")
+    geo = om.crop_geometry(26, 26, b)
     print(f"S3 crop, S4 transpose, S5 neighbour sum == plain: every variant "
-          f"at (26,26,{b}), 1004 and 1001 environments")
+          f"at (26,26,{b}), 1004, 1001, 33 and 7 environments; S3 at views "
+          f"15x15, 33x33 and 9x31, staged (E={geo['envs']}) on aligned and "
+          "misaligned boards, streamed on (128,128,64)")
 
 
 def check_k1_blocks(dev):
@@ -1130,23 +1184,32 @@ def k1_state_probe(bank, dev):
               f"in: {ms:.4f} ms, {what}")
 
 
-def spills(log):
-    """The K1 and K2/K3 instantiations of the ``-Xptxas -v`` log that
-    spill, as (entry function, ptxas line)."""
-    kernel, seen, out = None, 0, []
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = line if ("action_kernel" in line
-                              or "advance_kernel" in line) else None
-        elif kernel and "spill stores" in line:
-            seen += 1
-            if " 0 bytes spill stores, 0 bytes spill loads" not in line:
-                out.append((kernel.split("'")[1], line.strip()))
-    # 5 K1 block widths and 7 rule pairs x 3 modes x staged or streamed
-    # of K2/K3.
-    assert seen == 47, f"{seen} K1/K2/K3 instantiations in the build log"
-    print(f"build log: {seen} K1 and K2/K3 instantiations, "
-          f"{len(out)} of them spill {out}")
+# The kernels held to 0 spills, by library: entry-function name fragments
+# and how many instantiations the build log must show.  K1: 5 block
+# widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
+# kernels x staged or streamed; S3: 2 COMPUTE variants x staged or
+# streamed.
+SPILL_CHECKED = {"env_step_kernels": (("action_kernel", "advance_kernel"), 47),
+                 "life_kernels": (("rule_kernel",), 10),
+                 "obs_micro": (("crop_kernel",), 4)}
+
+
+def spills(built):
+    """The checked instantiations of the ``-Xptxas -v`` logs that spill, as
+    (entry function, ptxas line)."""
+    out = []
+    for lib, (names, expected) in SPILL_CHECKED.items():
+        kernel, seen = None, 0
+        for line in built[lib][1].splitlines():
+            if "Compiling entry function" in line:
+                kernel = line if any(n in line for n in names) else None
+            elif kernel and "spill stores" in line:
+                seen += 1
+                if " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                    out.append((kernel.split("'")[1], line.strip()))
+        assert seen == expected, f"{seen} {names} instantiations in {lib}"
+        print(f"build log: {seen} {'/'.join(names)} instantiations in {lib}")
+    print(f"build log: {len(out)} of them spill {out}")
     return out
 
 
@@ -1166,7 +1229,7 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {line.strip()}")
     # A spill fails the run at its end, after every measurement.
-    spilled = spills(built["env_step_kernels"][1])
+    spilled = spills(built)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1190,8 +1253,7 @@ def main():
           "(integer state; the reward is a float32 difference of integers; "
           "both sides draw the same Philox bits)")
     t = time.perf_counter()
-    check_k4(dev)
-    check_k5_k8(dev)
+    check_rule_kernels(dev)
     check_k1(dev)
     check_k2_k3(dev)
     check_k2_k3_large(dev)
@@ -1216,6 +1278,13 @@ def main():
 
     t = time.perf_counter()
     paths = dict(entry_points(dev), bench=launches)
+    for name in KERNELS:
+        # The bench's path, then the entry points' rows (the S rows' way of
+        # counting: each row's warm-up and captured run).
+        rows = {path: n[name] for path, n in paths.items()
+                if ":" in path and n.get(name)}
+        print(f"launches {name}: main path {launches[name]}; entry point "
+              f"rows {rows}")
     script = script_timings(dev, rate, int32_rate)
     still = banks["append-still"]
     k1_state_probe(still, dev)
@@ -1244,7 +1313,7 @@ def main():
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms))
     print(json.dumps({"kernels": kernels}))
-    assert not spilled, f"K1/K2/K3 instantiations spill: {spilled}"
+    assert not spilled, f"kernel instantiations spill: {spilled}"
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

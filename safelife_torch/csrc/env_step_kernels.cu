@@ -72,6 +72,7 @@
 
 #include "philox.cuh"
 #include "safelife_rule.cuh"
+#include "slab.cuh"
 
 namespace {
 
@@ -83,31 +84,6 @@ __device__ __forceinline__ int select_by_orient(int o, int t0, int t1, int t2,
   out = o == 1 ? t1 : out;
   out = o == 2 ? t2 : out;
   return o == 3 ? t3 : out;
-}
-
-__device__ __forceinline__ uint4 load16(const uint16_t* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-__device__ __forceinline__ uint4 ldg16(const uint16_t* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-__device__ __forceinline__ void store16(uint16_t* p, uint4 v) {
-  *reinterpret_cast<uint4*>(p) = v;
-}
-
-__device__ __forceinline__ void cp_async16(uint16_t* smem,
-                                           const uint16_t* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
 }
 
 // The 16-bit lanes of an 8-lane vector whose bit is set in m, as a mask.
@@ -291,35 +267,6 @@ struct AdvanceArgs {
   int H, W, B, time_limit, vh, vw, K, remove_white_goals;
   int envs, slots, seg, vector, staged;
 };
-
-// Copies the block's (H * W, E) slab of a (H, W, B) board (src at the
-// block's first environment) into shared memory: one 16-byte cp.async per
-// cell and 8 environments on the vector path, else 2-byte loads.
-__device__ __forceinline__ void stage(uint16_t* dst,
-                                      const uint16_t* __restrict__ src, int n,
-                                      int E, int lanes, long long B, bool vec) {
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  if (vec) {
-    const int G = E >> 3, g = t % G, step = T / G;
-    if (g * 8 >= lanes) return;
-    const long long stride = step * B;
-    src += (t / G) * B + g * 8;
-    dst += g * 8;
-    for (int cell = t / G; cell < n; cell += step, src += stride) {
-      cp_async16(dst + cell * E, src);
-    }
-  } else {
-    const int e = t % E, step = T / E;
-    if (e >= lanes) return;
-    const long long stride = step * B;
-    src += (t / E) * B + e;
-    dst += e;
-    for (int cell = t / E; cell < n; cell += step, src += stride) {
-      dst[cell * E] = *src;
-    }
-  }
-}
 
 // The view pixel of a final cell: its goal colour in bits 12-14, an add
 // that wraps at 16 bits (ops/obs.py combine_board_goals).

@@ -5,11 +5,11 @@
 // Replaces the TPU kernels of scripts/obs_micro.py:
 //   S3  make_roll_kernel (:53, launched :77): the agent-centred torus crop
 //       v[i][j][b] = x[(i + rs_b) mod H][(j + cs_b) mod W][b] to (vh, vw),
-//       there a barrel roll over the shift bits, here a gather (the GPU
-//       reads any address; ops/obs.py made the same choice).  COMPUTE
-//       int32 holds one environment's value in a 32-bit register and
-//       stores 2 bytes; uint16 holds two environments' values packed in
-//       one register and stores them as one 4-byte word.
+//       there a barrel roll over the shift bits, here a gather from a slab
+//       staged in shared memory (the GPU reads any address; ops/obs.py
+//       made the same choice).  COMPUTE int32 holds each environment's
+//       value in a 32-bit register of its own; uint16 holds two
+//       environments' values packed in one register as they are gathered.
 //   S4  make_transpose_kernel (:89, launched :103): (vh * vw, B) ->
 //       (B, vh * vw), a shared-memory tile transpose with the tile held as
 //       int32 or as uint16, padded against bank conflicts.
@@ -20,20 +20,36 @@
 //       per 32-bit add, the counterpart of the TPU's denser narrow lanes.
 //
 // Bound: bytes.  S3 reads the view's cells and writes them (4 bytes per
-// view cell, 7.4 MB at B = 16384 for a 15x15 view; the per-environment
-// shifts leave the warp's reads scattered, so the kernel moves far more
-// sectors than that); S4 reads and writes 2 bytes a cell; S5 reads and
+// view cell, 7.4 MB at B = 16384 for a 15x15 view); random shifts make the
+// union of a slab's windows nearly the whole board, so its design floor is
+// the whole board read and the view written (1802 bytes an environment at
+// 26x26, 0.0088 ms).  S4 reads and writes 2 bytes a cell; S5 reads and
 // writes 2 bytes a cell (44 MB at B = 16384 on 26x26 boards), with 8
 // integer operations per cell and plane.
 //
-// Design: one thread per (environment or lane group, row); each thread
-// walks its row.  S5 keeps a three-column window of column sums per plane
-// in registers; the rows above and below come again from L1/L2.
+// Design.  S3: a block owns a slab of E environments (ops/obs_micro.py
+// crop_geometry), stages the board's (H * W, E) slab in shared memory with
+// 16-byte cp.async (slab.cuh), each byte read from device memory once, and
+// gathers each environment's view from it: a thread takes view cells of 8
+// neighbouring environments and writes them as one 16-byte vector.  B % 8
+// != 0, or a tensor that is not 16-byte aligned, takes the same kernel
+// with 2-byte accesses; a board too large for a slab of 8 environments the
+// streamed variant, one thread per (environment or pair, view row) reading
+// the board in device memory.  S4, S5: one thread per (environment or lane
+// group, row); each thread walks its row.  S5 keeps a three-column window
+// of column sums per plane in registers; the rows above and below come
+// again from L1/L2.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "slab.cuh"
+
 namespace {
+
+using safelife::cp_async_wait_all;
+using safelife::stage;
+using safelife::store16;
 
 constexpr int THREADS = 128;
 
@@ -44,12 +60,98 @@ __device__ __forceinline__ int floor_mod(int a, int n) {
 
 // ---- S3: the view crop ----------------------------------------------------
 
-// PAIR: two neighbouring environments per thread, packed into one word.
+// Limits of the staged launch (ops/obs_micro.py crop_geometry): a slab of
+// at most CROP_MAX_ENVS environments, a multiple of 8, and CROP_THREADS
+// threads a block.
+constexpr int CROP_MAX_ENVS = 32;
+constexpr int CROP_THREADS = 256;
+
+template <bool PAIR>
+__global__ void __launch_bounds__(CROP_THREADS)
+    staged_crop_kernel(const uint16_t* __restrict__ x,
+                       const int32_t* __restrict__ si,
+                       uint16_t* __restrict__ out, int H, int W, int B, int vh,
+                       int vw, int E, int vec) {
+  extern __shared__ __align__(16) uint16_t slab[];
+  // Per environment: the row and column shift, reduced onto the board.
+  __shared__ int shift[2][CROP_MAX_ENVS];
+  const int t = threadIdx.x;
+  const long long BB = B;
+  const long long b0 = static_cast<long long>(blockIdx.x) * E;
+  const int lanes = static_cast<int>(min(BB - b0, 0LL + E));
+  if (t < lanes) {
+    shift[0][t] = floor_mod(si[b0 + t], H);
+    shift[1][t] = floor_mod(si[BB + b0 + t], W);
+  }
+  stage(slab, x + b0, H * W, E, lanes, BB, vec != 0);
+  cp_async_wait_all();
+  __syncthreads();
+  const int nv = vh * vw;
+  // The cell of view pixel (ii, jj) of environment k, ii < H and jj < W.
+  auto cell = [&](int k, int rs, int cs, int ii, int jj) -> uint32_t {
+    int r = rs + ii;
+    r -= r >= H ? H : 0;
+    int c = cs + jj;
+    c -= c >= W ? W : 0;
+    return slab[(r * W + c) * E + k];
+  };
+  if (vec) {
+    const int G = E >> 3, g = t % G, step = CROP_THREADS / G;
+    if (g * 8 >= lanes) return;
+    int rs[8], cs[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      rs[k] = shift[0][g * 8 + k];
+      cs[k] = shift[1][g * 8 + k];
+    }
+    const long long stride = step * BB;
+    uint16_t* dst = out + (t / G) * BB + b0 + g * 8;
+    for (int v = t / G; v < nv; v += step, dst += stride) {
+      const int i = v / vw, j = v - i * vw;
+      const int ii = i % H, jj = j % W;
+      uint32_t w[4];
+      if (PAIR) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          w[k] = cell(g * 8 + 2 * k, rs[2 * k], cs[2 * k], ii, jj) |
+                 cell(g * 8 + 2 * k + 1, rs[2 * k + 1], cs[2 * k + 1], ii, jj)
+                     << 16;
+        }
+      } else {
+        int val[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          val[k] = static_cast<int>(cell(g * 8 + k, rs[k], cs[k], ii, jj));
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          w[k] = static_cast<uint32_t>(val[2 * k]) |
+                 static_cast<uint32_t>(val[2 * k + 1]) << 16;
+        }
+      }
+      store16(dst, make_uint4(w[0], w[1], w[2], w[3]));
+    }
+  } else {
+    const int e = t % E, step = CROP_THREADS / E;
+    if (e >= lanes) return;
+    const int rs = shift[0][e], cs = shift[1][e];
+    const long long stride = step * BB;
+    uint16_t* dst = out + (t / E) * BB + b0 + e;
+    for (int v = t / E; v < nv; v += step, dst += stride) {
+      const int i = v / vw, j = v - i * vw;
+      *dst = static_cast<uint16_t>(cell(e, rs, cs, i % H, j % W));
+    }
+  }
+}
+
+// The streamed variant.  PAIR: two neighbouring environments per thread,
+// packed into one word.
 template <bool PAIR>
 __global__ void __launch_bounds__(THREADS)
-    crop_kernel(const uint16_t* __restrict__ x, const int32_t* __restrict__ si,
-                uint16_t* __restrict__ out, int H, int W, int B, int vh,
-                int vw) {
+    streamed_crop_kernel(const uint16_t* __restrict__ x,
+                         const int32_t* __restrict__ si,
+                         uint16_t* __restrict__ out, int H, int W, int B,
+                         int vh, int vw) {
   constexpr int E = PAIR ? 2 : 1;
   const long long b0 =
       (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) * E;
@@ -89,6 +191,35 @@ __global__ void __launch_bounds__(THREADS)
       if (two) o[1] = static_cast<uint16_t>(v >> 16);
     }
   }
+}
+
+template <bool PAIR>
+int launch_crop(const uint16_t* x, const int32_t* si, uint16_t* out, int H,
+                int W, int B, int vh, int vw, int envs, int vector, int staged,
+                cudaStream_t stream) {
+  if (!staged) {
+    if (vector) return static_cast<int>(cudaErrorInvalidValue);
+    const int per = PAIR ? 2 : 1;
+    const dim3 grid((B + THREADS * per - 1) / (THREADS * per), vh);
+    streamed_crop_kernel<PAIR><<<grid, THREADS, 0, stream>>>(x, si, out, H,
+                                                             W, B, vh, vw);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (envs % 8 != 0 || envs > CROP_MAX_ENVS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The wrapper has checked that the slab fits.
+  const int smem = H * W * envs * static_cast<int>(sizeof(uint16_t));
+  auto kernel = staged_crop_kernel<PAIR>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((B + envs - 1) / envs);
+  kernel<<<grid, CROP_THREADS, smem, stream>>>(x, si, out, H, W, B, vh, vw,
+                                               envs, vector);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- S4: the view transpose -----------------------------------------------
@@ -238,22 +369,21 @@ int launch_nbsum(const uint16_t* x, uint16_t* out, int H, int W, int B,
 
 }  // namespace
 
-// compute: 0 int32, 1 uint16.
+// compute: 0 int32, 1 uint16.  Geometry: envs (slab width E), vector
+// (16-byte path), staged.
 extern "C" int sl_view_crop(const uint16_t* x, const int32_t* si,
                             uint16_t* out, int H, int W, int B, int vh, int vw,
-                            int compute, cudaStream_t stream) {
-  const int per = compute == 1 ? 2 : 1;
-  const dim3 grid((B + THREADS * per - 1) / (THREADS * per), vh);
+                            int compute, int envs, int vector, int staged,
+                            cudaStream_t stream) {
   if (compute == 0) {
-    crop_kernel<false><<<grid, THREADS, 0, stream>>>(x, si, out, H, W, B, vh,
-                                                     vw);
-  } else if (compute == 1) {
-    crop_kernel<true><<<grid, THREADS, 0, stream>>>(x, si, out, H, W, B, vh,
-                                                    vw);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_crop<false>(x, si, out, H, W, B, vh, vw, envs, vector,
+                              staged, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (compute == 1) {
+    return launch_crop<true>(x, si, out, H, W, B, vh, vw, envs, vector,
+                             staged, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int sl_view_transpose(const uint16_t* in, uint16_t* out, int cells,

@@ -32,12 +32,14 @@ _I = ctypes.c_int
 # Library -> C function -> argument types.  Every pointer and the stream
 # (last argument) are c_void_p: a plain int would cut them to 32 bits.
 SIGNATURES = {
+    # The rule kernels: pointers, H, W, B, then the geometry (envs, slots,
+    # vector, staged) and the stream.
     "life_kernels": {
-        "sl_advance_spawnless": (_P, _P, _I, _I, _I, _P),
-        "sl_advance_with_field": (_P, _P, _P, _I, _I, _I, _P),
-        "sl_advance_simple": (_P, _P, _I, _I, _I, _P),
-        "sl_advance_pair_fields": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-        "sl_advance_both": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "sl_advance_spawnless": (_P, _P) + (_I,) * 7 + (_P,),
+        "sl_advance_with_field": (_P, _P, _P) + (_I,) * 7 + (_P,),
+        "sl_advance_simple": (_P, _P) + (_I,) * 7 + (_P,),
+        "sl_advance_pair_fields": (_P,) * 6 + (_I,) * 7 + (_P,),
+        "sl_advance_both": (_P,) * 6 + (_I,) * 7 + (_P,),
     },
     "env_step_kernels": {
         "sl_action": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -50,7 +52,7 @@ SIGNATURES = {
                        _I, _I, _I, _I, _I, _P),    # geometry, stream
     },
     "obs_micro": {
-        "sl_view_crop": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "sl_view_crop": (_P, _P, _P) + (_I,) * 9 + (_P,),
         "sl_view_transpose": (_P, _P, _I, _I, _I, _P),
         "sl_nb_sum_planes": (_P, _P, _I, _I, _I, _I, _I, _P),
     },
@@ -58,6 +60,13 @@ SIGNATURES = {
         "sl_philox_words": (_P, _P, _I, _I, _I, _P),
     },
 }
+
+# Shared memory on the H100: the most a block may use (227 KB), and an SM's
+# (228 KB, of which each resident block reserves 1 KB).  The staged
+# kernels size their slabs against these.
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
 
 # Kernel name -> launches so far; wrappers add one where they launch.
 LAUNCHES = collections.Counter()
@@ -141,6 +150,42 @@ def launch(kernel, lib, fn, *args):
     if err != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
     LAUNCHES[kernel] += 1
+
+
+def vector_path(b, *tensors):
+    """Whether the kernels move (H, W, ``b``) boards in 16-byte vectors: 8
+    environments of a cell are 16 bytes, aligned where ``b % 8 == 0`` and
+    every tensor starts on a 16-byte boundary.  Otherwise the same kernels
+    take 2-byte accesses."""
+    return b % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def slab_blocks(smem):
+    """Resident blocks an SM holds by shared memory, each using ``smem``
+    bytes."""
+    return SMEM_PER_SM // (smem + SMEM_RESERVED)
+
+
+def widest_slab(fits):
+    """Of the launch geometries that fit (dicts with ``envs`` and
+    ``blocks``), the widest slab that leaves room for two blocks on an SM,
+    so that one block's staging overlaps another's work; else the widest."""
+    return max(fits, key=lambda g: (min(g["blocks"], 2), g["envs"]))
+
+
+def pick_slab(cells, per_cell, widths, static_smem):
+    """The staged slab of a kernel that holds ``per_cell`` bytes of shared
+    memory an environment and board cell (``cells`` a board) beside
+    ``static_smem`` bytes of static arrays: {envs, smem, blocks} of the
+    :func:`widest_slab` of ``widths`` that fits a block, or None."""
+    fits = []
+    for e in widths:
+        smem = cells * e * per_cell
+        if smem + static_smem <= SMEM_PER_BLOCK:
+            fits.append(dict(envs=e, smem=smem,
+                             blocks=slab_blocks(smem + static_smem)))
+    return widest_slab(fits) if fits else None
 
 
 def check_cuda(*tensors, dtypes):

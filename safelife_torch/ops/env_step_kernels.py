@@ -27,6 +27,7 @@ import torch
 from .. import bits16
 from .. import cells as C
 from . import _build, rng
+from ._build import SMEM_PER_BLOCK, vector_path
 from .agent import gather_cells, masked_set
 from .life_kernels import (_advance_block, _advance_pair,
                            _advance_pair_spawnsimple,
@@ -51,13 +52,8 @@ ADVANCE_ENVS = (32, 16, 8)
 ADVANCE_MAX_THREADS = 512
 _MAX_SEG = 32
 _MAX_CELLS_PER_THREAD = 64
-# Shared memory on the H100: the most a block may use (227 KB), an SM's
-# (228 KB, of which each resident block reserves 1 KB), and the kernel's
-# static arrays: four sums and six values per environment (int32) and one
-# word of reset bits.
-SMEM_PER_BLOCK = 232448
-SMEM_PER_SM = 233472
-_SMEM_RESERVED = 1024
+# The kernel's static shared arrays: four sums and six values per
+# environment (int32) and one word of reset bits.
 _ADVANCE_STATIC_SMEM = (4 + 6) * 4 * ADVANCE_ENVS[0] + 4
 
 # Each goal-color row of the 8x8 point table packed into one int32: entry
@@ -159,15 +155,6 @@ def action_plain(si, board):
 ACTION_BLOCKS = (64, 128, 256, 512, 1024)
 
 
-def vector_path(b, *tensors):
-    """Whether the kernels move (H, W, ``b``) boards in 16-byte vectors: 8
-    environments of a cell are 16 bytes, aligned where ``b % 8 == 0`` and
-    every tensor starts on a 16-byte boundary.  Otherwise the same kernels
-    take 2-byte accesses."""
-    return b % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in tensors if t is not None)
-
-
 def apply_action(si, board, block=None):
     """K1 on a CUDA board, its plain version on a CPU board.
 
@@ -243,8 +230,7 @@ def _slab_geometry(h, w, rule, e):
             f"environments does not fit in {SMEM_PER_BLOCK} bytes of shared "
             f"memory and {ADVANCE_MAX_THREADS} threads")
     return dict(envs=e, slots=slots, seg=seg, threads=e * slots, smem=smem,
-                blocks=SMEM_PER_SM // (smem + _ADVANCE_STATIC_SMEM
-                                       + _SMEM_RESERVED),
+                blocks=_build.slab_blocks(smem + _ADVANCE_STATIC_SMEM),
                 staged=True)
 
 
@@ -274,7 +260,7 @@ def advance_geometry(h, w, rule, b, vector=True):
         except ValueError:
             continue
     if fits:
-        geo = max(fits, key=lambda g: (min(g["blocks"], 2), g["envs"]))
+        geo = _build.widest_slab(fits)
         return dict(geo, vector=bool(vector and b % 8 == 0))
     e = ADVANCE_ENVS[0]
     seg = -(-w // -(-w // _MAX_SEG))

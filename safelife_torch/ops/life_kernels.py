@@ -21,8 +21,9 @@ versions here repeat that packing function by function, in int32:
 
 Each specialised rule equals the full rule (:func:`.life.advance_board`)
 on the boards its bank flag certifies.  The wrappers launch the kernels of
-``csrc/life_kernels.cu`` on CUDA tensors and run the plain versions on CPU
-tensors; the ``*_plain`` functions run the plain versions on any device.
+``csrc/life_kernels.cu`` on CUDA tensors, with the geometry of
+:func:`rule_geometry`, and run the plain versions on CPU tensors; the
+``*_plain`` functions run the plain versions on any device.
 """
 
 import torch
@@ -327,11 +328,61 @@ def advance_both_plain(board, goals, spawn_prob, seed):
     return _u16(new_b), _u16(new_g)
 
 
+# The rule kernels' launch limits, which csrc/life_kernels.cu checks
+# (MAX_ENVS, MAX_THREADS, STREAM_THREADS): staged slab widths E, widest
+# first; threads a staged block; environments a streamed block.
+RULE_ENVS = (32, 16, 8)
+RULE_MAX_THREADS = 512
+RULE_STREAM_THREADS = 128
+# Bytes of the count word each kernel's rule sums (SpawnlessRule and
+# SimpleRule one int32, FullRule two): a staged block holds a slab of
+# words beside the 16-bit slab of the board it advances.
+RULE_WORD_BYTES = {"K4_advance_spawnless": 4, "K5_advance_with_field": 8,
+                   "K6_advance_simple": 4, "K7_advance_pair_fields": 8,
+                   "K8_advance_both": 8}
+# The kernel's static shared array: a spawn threshold per environment.
+_RULE_STATIC_SMEM = 4 * RULE_ENVS[0]
+
+
+def rule_geometry(h, w, kernel, b, vector=True):
+    """The launch geometry of ``kernel`` (a key of :data:`RULE_WORD_BYTES`)
+    on (``h``, ``w``, ``b``) boards.
+
+    A staged block advances a slab of E environments, one board at a time:
+    the board's cells (2 bytes) and their vertical sums (a count word) in
+    shared memory, ``smem`` bytes.  ``slots`` threads an environment take
+    its columns (the sums), then its rows (the rule).  E is the widest of
+    :data:`RULE_ENVS` that leaves room for two blocks on an SM, else the
+    widest that fits.  ``vector`` is the 16-byte path
+    (:func:`_build.vector_path` of the tensors), kept only where ``b % 8 ==
+    0``.  Where no slab fits, the streamed variant runs instead: 128
+    environments a block, one thread per environment and row, on the
+    boards in device memory (``staged`` false).
+
+    Returns a dict of envs, slots, threads, smem, blocks (resident blocks
+    an SM holds by shared memory; None when streamed), staged and vector.
+    """
+    slab = _build.pick_slab(h * w, 2 + RULE_WORD_BYTES[kernel], RULE_ENVS,
+                            _RULE_STATIC_SMEM)
+    if slab is None:
+        return dict(envs=RULE_STREAM_THREADS, slots=1,
+                    threads=RULE_STREAM_THREADS, smem=0, blocks=None,
+                    staged=False, vector=False)
+    slots = min(max(h, w), RULE_MAX_THREADS // slab["envs"])
+    return dict(slab, slots=slots, threads=slab["envs"] * slots, staged=True,
+                vector=bool(vector and b % 8 == 0))
+
+
 def _launch(kernel, fn, tensors, h, w, b):
     _build.check_cuda(*tensors, dtypes=tuple(t.dtype for t in tensors))
+    # The boards (uint16) move in vectors; fields, seed and probabilities
+    # are read where the rule asks.
+    boards = (t for t in tensors if t.dtype == torch.uint16)
+    geo = rule_geometry(h, w, kernel, b, _build.vector_path(b, *boards))
     if b:
         _build.launch(kernel, "life_kernels", fn,
-                      *(t.data_ptr() for t in tensors), h, w, b)
+                      *(t.data_ptr() for t in tensors), h, w, b, geo["envs"],
+                      geo["slots"], int(geo["vector"]), int(geo["staged"]))
 
 
 def _check_boards(*boards):

@@ -14,7 +14,8 @@ PyTorch version:
 ``compute`` (S3, S4) and ``dtype`` (S5) name the variants the script
 times: the width the kernel holds its values at.  They leave S3's and
 S4's results unchanged; S5 wraps at the width.  The wrappers launch the
-kernels on CUDA tensors and run the plain versions on CPU tensors.
+kernels on CUDA tensors (S3 with the staged slabs of
+:func:`crop_geometry`) and run the plain versions on CPU tensors.
 """
 
 import torch
@@ -57,6 +58,35 @@ def view_crop_plain(x, si, compute="int32", view=VIEW):
                      lanes].view(torch.uint16)
 
 
+# S3's launch limits, which csrc/obs_micro.cu checks (CROP_MAX_ENVS,
+# CROP_THREADS): staged slab widths E, widest first, and threads a staged
+# block; the kernel's static shared array holds two shifts an environment.
+CROP_ENVS = (32, 16, 8)
+CROP_THREADS = 256
+_CROP_STATIC_SMEM = 2 * 4 * CROP_ENVS[0]
+
+
+def crop_geometry(h, w, b, vector=True):
+    """The launch geometry of S3 on (``h``, ``w``, ``b``) boards.
+
+    A staged block keeps the board's slab of E environments in shared
+    memory (``smem`` bytes) and gathers their views from it; E is the
+    widest of :data:`CROP_ENVS` that leaves room for two blocks on an SM.
+    ``vector`` is the 16-byte path (:func:`_build.vector_path` of board and
+    view), kept only where ``b % 8 == 0``.  Where no slab of 8 fits, the
+    streamed variant reads the board in device memory (``staged`` false).
+
+    Returns a dict of envs, threads, smem, blocks (None when streamed),
+    staged and vector.
+    """
+    slab = _build.pick_slab(h * w, 2, CROP_ENVS, _CROP_STATIC_SMEM)
+    if slab is None:
+        return dict(envs=1, threads=128, smem=0, blocks=None, staged=False,
+                    vector=False)
+    return dict(slab, threads=CROP_THREADS, staged=True,
+                vector=bool(vector and b % 8 == 0))
+
+
 def view_crop(x, si, compute="int32", view=VIEW):
     """The ``view`` crop of ``(H, W, B)`` uint16 boards at the shifts in
     ``si`` (2, B) int32: kernel S3 on CUDA, the plain version on the
@@ -70,10 +100,12 @@ def view_crop(x, si, compute="int32", view=VIEW):
     if si.shape != (2, b):
         raise ValueError(f"si must be (2, {b}), not {tuple(si.shape)}")
     out = torch.empty((vh, vw, b), dtype=torch.uint16, device=x.device)
+    geo = crop_geometry(h, w, b, _build.vector_path(b, x, out))
     if b:
         _build.launch(f"S3_view_crop[{compute}]", "obs_micro", "sl_view_crop",
                       x.data_ptr(), si.data_ptr(), out.data_ptr(), h, w, b,
-                      vh, vw, COMPUTES.index(compute))
+                      vh, vw, COMPUTES.index(compute), geo["envs"],
+                      int(geo["vector"]), int(geo["staged"]))
     return out
 
 

@@ -13,6 +13,11 @@ card a loop is captured once in a CUDA graph and its replays are timed
 between CUDA events, so a row is the device's time for the chained work
 with no host launch gaps between kernels, as the JAX scripts' jit + scan
 were.
+
+One more reads the built kernels' machine code (``cuobjdump``), on the
+machine that builds them:
+
+    python -m safelife_torch.scripts.sass_count     # SASS instructions a loop and cell
 """
 
 import collections
