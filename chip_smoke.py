@@ -21,10 +21,18 @@ Phases, each an assertion that ends the run on failure:
    environments) and 64x64 boards (no slab fits: the streamed variant)
    under every rule; then the Philox draws (24-bit and paired):
    same seed same field, seeds differ, rate within 5 sigma, edges exact;
-   Then the kernels of the measurement scripts against their plain
-   versions, bit for bit: S3-S5 (crop, transpose, neighbour sum) in every
-   variant at (26, 26, 16384) and ragged batches (S3 at views 15x15,
-   33x33 and 9x31, misaligned, and streamed on 128x128 boards), K1 at
+   then the observation sum R1 (uint8 and uint16, the main path's
+   observation at B = 65536, lengths that are not a multiple of 16 and
+   tensors one element off a 16-byte boundary) and the view kernel, S4's
+   KEEP and the step's UNPACK (views 15x15, 7x9, 33x33 and 40x40 (the
+   streamed variant), channels range(15), (0, 3, 12), (14, 2, 7),
+   range(16), B = 65536, 4096, 1001, 33 and 7, misaligned views, bulk
+   and narrow stores); then the kernels of the measurement scripts against
+   their plain versions, bit for bit: S3 and S5 (crop, neighbour sum) in
+   every variant at (26, 26, 16384) and ragged batches (S3 at views 15x15,
+   33x33 and 9x31, misaligned, and streamed on 128x128 boards; S5 also at
+   B = 65536, on 25x27, 72x72, 100x100, 1x1 and 3x5 boards (staged) and
+   128x128 (streamed), each also misaligned), K1 at
    every block width, T1 (the Philox
    word field; its word at the zero counter and key against Random123's
    known answer); and the integrity guard (``utils/integrity.py``)
@@ -34,21 +42,27 @@ Phases, each an assertion that ends the run on failure:
    selftest that its ``main`` runs, then its timing
    of append-still, append-dynamic and the stress bank at B = 65536 for 160
    steps each (fresh levels every 20 steps, the observation consumed every
-   step); then the evaluation path (no auto-reset) for 20 steps, and a few
-   steps of each v1.0 suite and of the general-pair bank with and without
-   auto-reset, with the launch counts read around it all;
+   step through the view kernel's UNPACK and summed by R1); then the
+   evaluation path (no auto-reset) for 20 steps, a few steps with the
+   packed observation (KEEP), and a few steps of each v1.0 suite and of
+   the general-pair bank with and without auto-reset, with the launch
+   counts read around it all;
 6. each kernel's time at the main path's shapes beside its bound and its
-   plain version's time (K2 and K3 under each rule), and a profile of 20
-   steps of each configuration (device time by kernel, idle share);
+   plain version's time (K2 and K3 under each rule; the unpack and R1 on
+   the step's packed view and observation), and a profile of 20 steps of
+   each configuration (device time by kernel, idle share), then 20 more
+   of append-still with input shapes recorded (copies, masks and tests);
 7. the measurement entry points ``python -m safelife_torch.scripts.*``
    (stepbench, ablock_bench, obs_micro, stress_micro), each run once with
    the launch counts read around it, then the times of their kernels
-   (S1-S5, T1) beside bounds, plain versions and library calls, K1's
-   time on one state with its agents where they are and moved to a corner,
-   and a profile of stepbench's full step at its batch;
+   (S1-S5, T1) beside bounds, plain versions and library calls, S3-S5
+   again at B = 65536 (inputs larger than the L2), T1's launch floor (an
+   empty kernel launched as T1 is), K1's time on one state with its agents
+   where they are and moved to a corner, and a profile of stepbench's full
+   step at its batch;
 8. one JSON line listing the kernels, and last the result line; before
-   it the run fails if the build log shows a K1-K8 or S3 instantiation
-   that spills.
+   it the run fails if the build log shows a K1-K8, S3-S5, R1 or view
+   kernel instantiation that spills.
 
 Exits nonzero, printing no result, when no CUDA device is present.
 """
@@ -68,6 +82,7 @@ from safelife_torch import cells as C
 from safelife_torch.env.env import BatchedSafeLifeEnv, EnvConfig
 from safelife_torch.levels import loader, synth
 from safelife_torch.ops import _build, env_step_kernels as esk, life_kernels
+from safelife_torch.ops import obs as obs_ops
 from safelife_torch.ops import obs_micro as om
 from safelife_torch.ops import rng
 from safelife_torch.ops.life import nb_sum
@@ -137,6 +152,15 @@ KERNELS = {
     "K8_advance_both": (LIFE_SOURCE, "safelife_tpu/ops/life_pallas.py:387"),
 }
 OBS_SOURCE = "safelife_torch/csrc/obs_micro.cu"
+VIEW_SOURCE = "safelife_torch/csrc/view_kernels.cu"
+SUM_SOURCE = "safelife_torch/csrc/obs_sum.cu"
+# Main-path kernels that replace no TPU kernel: the view kernel's UNPACK
+# replaces the XLA part of the jitted step after the advance kernel, and
+# the observation sum the reference bench's consumer.
+KERNELS.update({
+    "S4_view_unpack": (VIEW_SOURCE, "safelife_tpu/ops/obs.py:79"),
+    "R1_obs_sum": (SUM_SOURCE, "bench.py:215"),
+})
 PHILOX_SOURCE = "safelife_torch/csrc/philox_words.cu"
 # The batch of the measurement scripts (all but stress_micro's).
 SCRIPT_BATCH = 16384
@@ -155,7 +179,7 @@ SCRIPT_KERNELS = {
     **{f"S3_view_crop[{c}]": (OBS_SOURCE, "scripts/obs_micro.py:77",
                               f"S3_view_crop[{c}]", "obs_micro")
        for c in om.COMPUTES},
-    **{f"S4_view_transpose[{c}]": (OBS_SOURCE, "scripts/obs_micro.py:103",
+    **{f"S4_view_transpose[{c}]": (VIEW_SOURCE, "scripts/obs_micro.py:103",
                                    f"S4_view_transpose[{c}]", "obs_micro")
        for c in om.COMPUTES},
     **{f"S5_nb_sum[{d}x{p}]": (OBS_SOURCE, "scripts/obs_micro.py:133",
@@ -522,10 +546,14 @@ def check_philox(dev, p=0.3):
 
 
 def check_obs_micro(dev, b=SCRIPT_BATCH):
-    """S3-S5 in every variant against their plain versions: full-range
-    and small boards, shifts beyond the board both ways, odd batches; S3
+    """S3 and S5 in every variant against their plain versions: full-range
+    and small values, shifts beyond the board both ways, odd batches; S3
     also on boards 2 bytes off a 16-byte boundary (the 2-byte path) and
-    on 128x128 boards (no slab fits: the streamed variant)."""
+    on 128x128 boards (no slab fits: the streamed variant); S5 also at B
+    = 65536, on 25x27, 72x72 and 100x100 boards and on 1x1 and 3x5 boards
+    (a block of fewer walks than environments), all staged, and on
+    128x128 boards (streamed), each board also 2 bytes off a 16-byte
+    boundary."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
 
@@ -537,43 +565,129 @@ def check_obs_micro(dev, b=SCRIPT_BATCH):
         return torch.randint(-40, 40, (2, batch), generator=gen, device=dev,
                              dtype=torch.int32)
 
-    for batch in (b, 1004, 1001, 33, 7):
-        x = u16((26, 26, batch))
-        si = shifts(batch)
-        for compute in om.COMPUTES:
-            for view in (om.VIEW, (33, 33), (9, 31)):
-                for board in (x, misaligned(x)):
-                    assert_bit_equal(
-                        [om.view_crop(board, si, compute, view)],
-                        [om.view_crop_plain(board, si, compute, view)],
-                        f"S3 {compute} view {view} B={batch}")
-            window = bits16(x)[:15, :15].contiguous().view(torch.uint16)
-            for v in (window, u16((33, 33, batch))):
-                assert_bit_equal([om.view_transpose(v, compute)],
-                                 [om.view_transpose_plain(v, compute)],
-                                 f"S4 {compute} {tuple(v.shape)}")
+    s5 = collections.defaultdict(set)
+    for shape in ((26, 26, b), (26, 26, MAIN_BATCH), (26, 26, 1004),
+                  (26, 26, 1001), (26, 26, 33), (26, 26, 7), (25, 27, 104),
+                  (72, 72, 96), (100, 100, 64), (1, 1, 8), (3, 5, 12),
+                  (128, 128, 64)):
+        batch = shape[2]
+        x = u16(shape)
+        if shape[:2] == (26, 26) and batch != MAIN_BATCH:
+            si = shifts(batch)
+            for compute in om.COMPUTES:
+                for view in (om.VIEW, (33, 33), (9, 31)):
+                    for board in (x, misaligned(x)):
+                        assert_bit_equal(
+                            [om.view_crop(board, si, compute, view)],
+                            [om.view_crop_plain(board, si, compute, view)],
+                            f"S3 {compute} view {view} B={batch}")
         small = (x.to(torch.int32) & 15).to(torch.uint16)
         for dtype in om.WIDTHS:
             if batch % om._LANES[dtype]:
                 continue
             for planes in om.PLANES:
-                for board in (small, x):
+                geo = om.nbsum_geometry(*shape, dtype, planes)
+                s5[f"{dtype}x{planes}"].add(
+                    f"{shape}: " + (f"E={geo['envs']}" if geo["staged"]
+                                    else "streamed"))
+                for board in (small, x, misaligned(x)):
                     assert_bit_equal(
                         [om.nb_sum_planes(board, dtype, planes)],
                         [om.nb_sum_planes_plain(board, dtype, planes)],
-                        f"S5 {dtype} x{planes} B={batch}")
+                        f"S5 {dtype} x{planes} {shape}")
     big = u16((128, 128, 64))
     assert not om.crop_geometry(128, 128, 64)["staged"]
+    assert not om.nbsum_geometry(128, 128, 64, "int32", 1)["staged"]
     si = shifts(64)
     for compute in om.COMPUTES:
         assert_bit_equal([om.view_crop(big, si, compute)],
                          [om.view_crop_plain(big, si, compute)],
                          f"S3 {compute} streamed")
     geo = om.crop_geometry(26, 26, b)
-    print(f"S3 crop, S4 transpose, S5 neighbour sum == plain: every variant "
-          f"at (26,26,{b}), 1004, 1001, 33 and 7 environments; S3 at views "
+    print(f"S3 crop, S5 neighbour sum == plain: every variant at "
+          f"(26,26,{b}), 1004, 1001, 33 and 7 environments; S3 at views "
           f"15x15, 33x33 and 9x31, staged (E={geo['envs']}) on aligned and "
-          "misaligned boards, streamed on (128,128,64)")
+          "misaligned boards, streamed on (128,128,64); S5 on aligned and "
+          "misaligned boards, by variant: "
+          + "; ".join(f"{k} {sorted(v)}" for k, v in s5.items()))
+
+
+def check_obs_sum(dev):
+    """R1 against its plain version: the main path's observation at B =
+    65536, uint8 and uint16 tensors of full-range values (the int32 sum
+    wraps) whose lengths are not multiples of 16, each also one element
+    off a 16-byte boundary."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    bank = load_bank("append-still", dev)
+    env = BatchedSafeLifeEnv(EnvConfig(view_shape=VIEW), device=dev)
+    state = env.reset_all(bank, MAIN_BATCH, gen)
+    action = torch.randint(0, 9, (MAIN_BATCH,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    obs = env.step(state, bank, action, gen)[1].obs
+    tensors = {"the step's observation": obs,
+               "the step's observation, one byte off":
+                   obs.reshape(-1)[1:]}
+    for dtype, high in ((torch.uint8, 256), (torch.uint16, 2**16)):
+        for n in (1, 15, 17, 12345, 221184013):
+            x = torch.randint(0, high, (n + 1,), generator=gen, device=dev,
+                              dtype=torch.int32).to(dtype)
+            tensors[f"{dtype} n={n}"] = x[:n]
+            tensors[f"{dtype} n={n}, one element off"] = x[1:]
+    for what, x in tensors.items():
+        assert_bit_equal([obs_ops.obs_sum(x)], [obs_ops.obs_sum_plain(x)],
+                         f"R1 {what}")
+    print(f"R1 observation sum == plain: {', '.join(tensors)}")
+
+
+# The view kernel's checks: views, channel lists and batches.
+VIEW_SHAPES = ((15, 15), (7, 9), (33, 33), (40, 40))
+VIEW_CHANNELS = (tuple(range(15)), (0, 3, 12), (14, 2, 7), tuple(range(16)))
+VIEW_BATCHES = (MAIN_BATCH, 4096, 1001, 33, 7)
+
+
+def check_view(dev):
+    """The view kernel against its plain versions: S4 (KEEP, both compute
+    names) and the step's unpack (UNPACK) under every channel list, at
+    every view and batch of VIEW_SHAPES and VIEW_BATCHES (33x33: narrow
+    stores; 40x40: the streamed variant), on aligned and misaligned
+    views."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    paths = set()
+    for vh, vw in VIEW_SHAPES:
+        for b in VIEW_BATCHES:
+            if vh * vw > 15 * 15 and b == MAIN_BATCH:
+                continue
+            v = torch.randint(0, 2**16, (vh, vw, b), generator=gen,
+                              device=dev, dtype=torch.int32).to(torch.uint16)
+            for view in (v, misaligned(v)):
+                what = f"{vh}x{vw} B={b}" + (
+                    "" if view is v else ", misaligned")
+                want = obs_ops.transpose_view_plain(view)
+                assert_bit_equal([obs_ops.transpose_view(view)], [want],
+                                 f"KEEP {what}")
+                for c in om.COMPUTES:
+                    assert_bit_equal([om.view_transpose(view, c)],
+                                     [om.view_transpose_plain(view, c)],
+                                     f"S4 {c} {what}")
+                for channels in VIEW_CHANNELS:
+                    want = obs_ops.unpack_channels_plain(view, channels)
+                    assert_bit_equal(
+                        [obs_ops.unpack_channels(view, channels)], [want],
+                        f"UNPACK {channels} {what}")
+                    geo = obs_ops.view_geometry(
+                        vh, vw, b, channels, _build.vector_path(b, view))
+                    paths.add(("E={envs} {stage} staging, {store} stores"
+                               .format(envs=geo["envs"],
+                                       stage=("16-byte" if geo["vector"]
+                                              else "2-byte"),
+                                       store=("bulk" if geo["bulk"]
+                                              else "narrow")))
+                              if geo["staged"] else "streamed")
+    print(f"S4 KEEP and the step's UNPACK == plain: views "
+          f"{VIEW_SHAPES}, channels {VIEW_CHANNELS}, B {VIEW_BATCHES}, "
+          f"aligned and misaligned; paths {sorted(paths)}")
 
 
 def check_k1_blocks(dev):
@@ -682,6 +796,10 @@ def main_path(dev):
         assert launches.get("K1_action") == MAIN_STEPS, launches
         assert launches.get(f"K2_advance_fold[{rule}]") == MAIN_STEPS, (
             launches)
+        # The observation of every step unpacked by the view kernel and
+        # summed by R1.
+        assert launches.get("S4_view_unpack") == MAIN_STEPS, launches
+        assert launches.get("R1_obs_sum") == MAIN_STEPS, launches
         assert int(state.num_steps) > 0
         assert int(state.episodes_started) >= MAIN_BATCH
         results[name] = (rate, state)
@@ -709,8 +827,18 @@ def main_path(dev):
     _, eval_launches = counted(evaluate)
     assert eval_launches.get("K3_advance_noreset[static_spawnless]") == (
         EVAL_STEPS), eval_launches
+    assert eval_launches.get("S4_view_unpack") == EVAL_STEPS, eval_launches
     print(f"evaluation path (no auto-reset): B={MAIN_BATCH} {EVAL_STEPS} "
           f"steps; launches {eval_launches}")
+
+    packed_env = BatchedSafeLifeEnv(EnvConfig(
+        view_shape=VIEW, output_channels=None), device=dev)
+    _, packed_launches = counted(lambda: suite_steps(packed_env, still, dev))
+    assert packed_launches.get("S4_view_keep") == SUITE_STEPS, (
+        packed_launches)
+    print(f"packed observation (output_channels=None): {SUITE_STEPS} steps "
+          f"at B=4096 through the view kernel's KEEP; launches "
+          f"{packed_launches}")
 
     for name in SUITES + ("general",):
         bank = load_bank(name, dev)
@@ -742,7 +870,10 @@ def suite_steps(env, bank, dev, b=4096):
                                dtype=torch.int32)
         state, ts = env.step(state, bank, action, gen, fresh_levels=fresh)
         assert torch.isfinite(ts.reward).all()
-        assert int(ts.obs.max()) <= 1
+        if env.config.output_channels is None:
+            assert ts.obs.shape == (b, *VIEW), ts.obs.shape
+        else:
+            assert int(ts.obs.max()) <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -886,6 +1017,8 @@ def kernel_timings(banks, dev, rate, int32_rate):
                 | (act_i[3] != 0))
         h, w, b = board1.shape
         out = adv(fold, esk.advance, board1, act_i)()
+        if rule == "static_spawnless":
+            runs.update(observation_runs(out[3], name))
         draws = draw_cells(board1) if fold["draw"] != "none" else 0
         if fold["draw"] == "pair":
             draws += draw_cells(fold["goals"], inhibit=rule == "general")
@@ -920,7 +1053,7 @@ def kernel_timings(banks, dev, rate, int32_rate):
         if rule == "spawn_simple":
             runs.update(rule_kernel_runs(fold, board1, name))
     out = {}
-    for name, (kernel, plain, moved, draws, what) in runs.items():
+    for name, (kernel, plain, moved, draws, what, *ops) in runs.items():
         got, want = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -928,7 +1061,8 @@ def kernel_timings(banks, dev, rate, int32_rate):
         ms = time_ms(kernel, 50)
         plain_ms = time_ms(plain, 3)
         cells = 26 * 26 * MAIN_BATCH
-        ops = OPS_PER_CELL[name] * cells + OPS_PER_DRAW * draws
+        ops = ops[0] if ops else (OPS_PER_CELL[name] * cells
+                                  + OPS_PER_DRAW * draws)
         bound, bound_by, int32_ms = bound_and_estimate(moved, ops, rate,
                                                      int32_rate)
         out[name] = (err, ms, plain_ms, bound, bound_by)
@@ -939,6 +1073,25 @@ def kernel_timings(banks, dev, rate, int32_rate):
               f"cells), {bound / ms:.1%} of the bound; INT32 estimate "
               f"{int32_ms:.4f} ms ({int32_ms / ms:.1%}); {what}")
     return out
+
+
+def observation_runs(packed, name):
+    """The step's unpack (the view kernel's UNPACK) on the packed view K2
+    wrote, and R1 on its output; their operations: a shift and a mask an
+    output byte, an addition an element."""
+    channels = tuple(range(15))
+    obs = obs_ops.unpack_channels(packed, channels)
+    what = f"{name}'s packed view {tuple(packed.shape)}, 15 channels"
+    return {
+        "S4_view_unpack": (
+            lambda: obs_ops.unpack_channels(packed, channels),
+            lambda: obs_ops.unpack_channels_plain(packed, channels),
+            nbytes(packed, obs), 0, what, 2 * obs.numel()),
+        "R1_obs_sum": (
+            lambda: obs_ops.obs_sum(obs), lambda: obs_ops.obs_sum_plain(obs),
+            nbytes(obs) + 4, 0, f"its observation {tuple(obs.shape)}",
+            obs.numel()),
+    }
 
 
 def rule_kernel_runs(fold, board1, name):
@@ -971,9 +1124,12 @@ def rule_kernel_runs(fold, board1, name):
     }
 
 
-def profile(name, bank, state, steps=ROLLOUT):
-    """Device time by kernel over ``steps`` main-path steps, and the share
-    of the host-clock wall time in which the device ran no kernel."""
+def profile(name, bank, state, steps=ROLLOUT, shapes=False):
+    """Device time by kernel over ``steps`` main-path steps (a multiple of
+    ROLLOUT), and the share of the host-clock wall time in which the
+    device ran no kernel; with ``shapes``, also the step's copies, masks
+    and tests by input shape (recording shapes slows the host, so that
+    run's wall is not the step's)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
     dev = state.device
     env = BatchedSafeLifeEnv(EnvConfig(view_shape=VIEW), device=dev)
@@ -981,7 +1137,8 @@ def profile(name, bank, state, steps=ROLLOUT):
     gen.manual_seed(5)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+                                   ProfilerActivity.CUDA],
+                       record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         bench.run_steps(env, bank, state, gen, steps)
         torch.cuda.synchronize()
@@ -998,7 +1155,7 @@ def profile(name, bank, state, steps=ROLLOUT):
           f"({busy_ms / steps:.3f} ms/step), idle share "
           f"{1 - busy_ms / wall_ms:.1%}")
     print("  by kernel:")
-    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms / steps:8.4f} ms/step  {ms / busy_ms:6.1%}  {kname[:90]}")
     print("  by the torch op that launched it:")
     ops = [(e.self_device_time_total / 1e3, e.key)
@@ -1007,6 +1164,15 @@ def profile(name, bank, state, steps=ROLLOUT):
            and e.self_device_time_total > 0]
     for ms, op in sorted(ops, reverse=True)[:8]:
         print(f"  {ms / steps:8.4f} ms/step  {ms / busy_ms:6.1%}  {op}")
+    if not shapes:
+        return
+    print("  copies, masks and tests by input shapes:")
+    shaped = [(e.self_device_time_total / 1e3, e.key, e.input_shapes)
+              for e in prof.key_averages(group_by_input_shape=True)
+              if e.key in ("aten::copy_", "aten::bitwise_and", "aten::ne")
+              and e.self_device_time_total > 0]
+    for ms, op, shapes in sorted(shaped, reverse=True)[:6]:
+        print(f"  {ms / steps:8.4f} ms/step  {op} {str(shapes)[:100]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1073,18 +1239,19 @@ def time_chain(fn, x, iters, chain, graph=False):
     return start.elapsed_time(end) / iters
 
 
-def script_runs(dev):
+def script_runs(dev, b=SCRIPT_BATCH):
     """{kernel: (kernel fn, plain fn, input, chained, library fn or None,
-    bytes moved, operations, what)} at the scripts' shapes."""
-    b = SCRIPT_BATCH
+    bytes moved, operations, what)} at the scripts' shapes, or only S3-S5
+    at another batch ``b``."""
     cells = 26 * 26 * b
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     still = load_bank("append-still", dev)
     board = still.take(torch.arange(b, device=dev) % still.num_levels).board
     runs = {}
-    for name, rows, block in [("S1_action_only", 8, None)] + [
-            (f"S2_action_block[{n}]", 9, n) for n in esk.ACTION_BLOCKS]:
+    actions = [("S1_action_only", 8, None)] + [
+        (f"S2_action_block[{n}]", 9, n) for n in esk.ACTION_BLOCKS]
+    for name, rows, block in actions if b == SCRIPT_BATCH else ():
         si = torch.zeros((rows, b), dtype=torch.int32, device=dev)
         si[0] = 2
         out, act_i = esk.apply_action(si, board, block)
@@ -1139,14 +1306,16 @@ def script_runs(dev):
     return runs
 
 
-def script_timings(dev, rate, int32_rate):
+def script_timings(dev, rate, int32_rate, b=SCRIPT_BATCH):
     """{kernel: (max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms)} at the scripts' shapes."""
+    library_ms)} at the scripts' shapes, or S3-S5 at batch ``b``."""
     out = {}
     for name, (kernel, plain, x, chain, library, moved, ops,
-               what) in script_runs(dev).items():
+               what) in script_runs(dev, b).items():
+        if b != SCRIPT_BATCH and name[:2] not in ("S3", "S4", "S5"):
+            continue
         err = assert_bit_equal([kernel(x)], [plain(x)],
-                               f"{name} at the scripts' shapes")
+                               f"{name} at B={b}")
         ms = time_chain(kernel, x, 200, chain, graph=True)
         loop_ms = time_chain(kernel, x, 200, chain)
         plain_ms = time_chain(plain, x, 3, False)
@@ -1156,13 +1325,35 @@ def script_timings(dev, rate, int32_rate):
                                                      int32_rate)
         out[name] = (err, ms, plain_ms, bound, bound_by, library_ms)
         lib = f", library {library_ms:.4f} ms" if library else ""
-        print(f"timing {name}: max abs err {err} vs plain; {ms:.4f} ms in "
-              f"a CUDA graph, {loop_ms:.4f} ms launched from Python "
+        at = "" if b == SCRIPT_BATCH else f" B={b}"
+        print(f"timing {name}{at}: max abs err {err} vs plain; {ms:.4f} ms "
+              f"in a CUDA graph, {loop_ms:.4f} ms launched from Python "
               f"(plain {plain_ms:.4f} ms{lib}), bound {bound:.6f} ms by "
               f"{bound_by} ({moved / 1e6:.3f} MB, {ops / 1e9:.3f} G ops), "
               f"{bound / ms:.1%} of the bound; INT32 estimate "
               f"{int32_ms:.6f} ms; {what}")
     return out
+
+
+def t1_floor(dev):
+    """T1's launch floor: an empty kernel with T1's grid, block and
+    arguments (``sl_philox_floor``), launched and graphed as T1 is timed in
+    phase 7."""
+    seed = torch.tensor([integrity.PROBE_SEED], dtype=torch.int32,
+                        device=dev)
+    h, w, b = integrity.PROBE_SHAPE
+    out = torch.empty((h, w, b), dtype=torch.int32, device=dev)
+
+    def empty(s):
+        _build.launch("T1_launch_floor", "philox_words", "sl_philox_floor",
+                      s.data_ptr(), out.data_ptr(), h, w, b)
+        return out
+
+    ms = time_chain(empty, seed, 200, False, graph=True)
+    t1 = time_chain(lambda s: rng.philox_words(s, (h, w, b)), seed, 200,
+                    False, graph=True)
+    print(f"T1 launch floor: an empty kernel of T1's grid ({(h, w, b)}) in "
+          f"a CUDA graph {ms:.6f} ms; T1 {t1:.6f} ms in the same way")
 
 
 def k1_state_probe(bank, dev):
@@ -1188,10 +1379,14 @@ def k1_state_probe(bank, dev):
 # and how many instantiations the build log must show.  K1: 5 block
 # widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
 # kernels x staged or streamed; S3: 2 COMPUTE variants x staged or
-# streamed.
+# streamed; S5: 3 widths x 2 plane counts x staged or streamed; the view
+# kernel: KEEP and UNPACK of 1 to 16 channels staged, KEEP and UNPACK
+# streamed; R1: uint8 and uint16.
 SPILL_CHECKED = {"env_step_kernels": (("action_kernel", "advance_kernel"), 47),
                  "life_kernels": (("rule_kernel",), 10),
-                 "obs_micro": (("crop_kernel",), 4)}
+                 "obs_micro": (("crop_kernel", "nbsum_kernel"), 16),
+                 "view_kernels": (("view_kernel",), 19),
+                 "obs_sum": (("sum_kernel",), 2)}
 
 
 def spills(built):
@@ -1258,6 +1453,8 @@ def main():
     check_k2_k3(dev)
     check_k2_k3_large(dev)
     check_philox(dev)
+    check_obs_sum(dev)
+    check_view(dev)
     check_obs_micro(dev)
     check_k1_blocks(dev)
     check_t1(dev)
@@ -1274,6 +1471,8 @@ def main():
     timings = kernel_timings(banks, dev, rate, int32_rate)
     for name, (_, state) in results.items():
         profile(name, banks[name], state)
+    profile("append-still, input shapes recorded", banks["append-still"],
+            results["append-still"][1], shapes=True)
     print(f"phase 6: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1286,6 +1485,9 @@ def main():
         print(f"launches {name}: main path {launches[name]}; entry point "
               f"rows {rows}")
     script = script_timings(dev, rate, int32_rate)
+    # S3-S5 on inputs larger than the 50 MB L2: shares of an HBM bound.
+    script_timings(dev, rate, int32_rate, MAIN_BATCH)
+    t1_floor(dev)
     still = banks["append-still"]
     k1_state_probe(still, dev)
     # The step that stepbench's first row times in a graph, launched from
@@ -1304,7 +1506,8 @@ def main():
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None))
+            # R1's plain version is one PyTorch call (a sum).
+            library_ms=plain_ms if name == "R1_obs_sum" else None))
     for name, (source, replaces, counter, path) in SCRIPT_KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by, library_ms = script[name]
         kernels.append(dict(

@@ -50,6 +50,7 @@ from . import bits16, resolve_device
 from .env.env import BatchedSafeLifeEnv, EnvConfig
 from .levels import loader, synth
 from .ops import _build, life_kernels, rng
+from .ops import obs as obs_ops
 from .utils import integrity
 
 BASELINE_STEPS_PER_S = 10e6  # the north star of BASELINE.md
@@ -256,7 +257,7 @@ def run_steps(env, bank, state, generator, steps):
                                    device=dev, dtype=torch.int32)
             state, ts = env.step(state, bank, action, generator,
                                  fresh_levels=fresh)
-            total += ts.obs.sum(dtype=torch.int32) + ts.reward.sum()
+            total += obs_ops.obs_sum(ts.obs) + ts.reward.sum()
     return state, total
 
 

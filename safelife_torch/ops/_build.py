@@ -53,11 +53,20 @@ SIGNATURES = {
     },
     "obs_micro": {
         "sl_view_crop": (_P, _P, _P) + (_I,) * 9 + (_P,),
-        "sl_view_transpose": (_P, _P, _I, _I, _I, _P),
-        "sl_nb_sum_planes": (_P, _P, _I, _I, _I, _I, _I, _P),
+        "sl_nb_sum_planes": (_P, _P) + (_I,) * 10 + (_P,),
+    },
+    # view, out, vh, vw, B, C, the channels' bits, then the geometry
+    # (envs, vector, bulk, staged) and the stream.
+    "view_kernels": {
+        "sl_view": (_P, _P) + (_I,) * 4 + (ctypes.c_ulonglong,) + (_I,) * 4
+                   + (_P,),
+    },
+    "obs_sum": {
+        "sl_obs_sum": (_P, ctypes.c_longlong, _I, _I, _P, _P),
     },
     "philox_words": {
         "sl_philox_words": (_P, _P, _I, _I, _I, _P),
+        "sl_philox_floor": (_P, _P, _I, _I, _I, _P),
     },
 }
 
@@ -67,6 +76,8 @@ SIGNATURES = {
 SMEM_PER_BLOCK = 232448
 SMEM_PER_SM = 233472
 SMEM_RESERVED = 1024
+# Its streaming multiprocessors.
+SM_COUNT = 132
 
 # Kernel name -> launches so far; wrappers add one where they launch.
 LAUNCHES = collections.Counter()

@@ -11,6 +11,13 @@
 
 The crop is a direct gather ``view[i, j] = x[(rs + i) % H, (cs + j) % W]``
 per board; the GPU has no use for the TPU's barrel roll.
+
+On the card, :func:`unpack_channels` and :func:`transpose_view` take the
+packed ``(vh, vw, B)`` view batch-major in one hand-written kernel
+(``csrc/view_kernels.cu``, its UNPACK and KEEP epilogues, with the launch
+geometry of :func:`view_geometry`), and :func:`obs_sum` sums an
+observation in one read (``csrc/obs_sum.cu``); on CPU tensors they run
+their plain versions, ``*_plain``.
 """
 
 import functools
@@ -19,6 +26,7 @@ import torch
 
 from .. import bits16
 from .. import cells as C
+from . import _build
 
 
 def combine_board_goals(board, goals, remove_white_goals=True):
@@ -89,14 +97,23 @@ def _channel_masks(channels, device):
                         device=device).to(torch.int16)
 
 
-def unpack_channels(view, channels):
-    """(vh, vw, B) uint16 -> (B, vh, vw, C) uint8 binary channels.
+def unpack_channels_plain(view, channels):
+    """The plain version of :func:`unpack_channels`.
 
     Transposes the packed view first and tests each channel's bit in
     16-bit words, so no intermediate is wider than the packed word."""
     masks = _channel_masks(tuple(channels), view.device)
     packed = bits16(view).permute(2, 0, 1).contiguous()
     return ((packed[..., None] & masks) != 0).view(torch.uint8)
+
+
+def unpack_channels(view, channels):
+    """(vh, vw, B) uint16 -> (B, vh, vw, C) uint8 binary channels: channel
+    ``c`` is bit ``channels[c]`` of the word.  The view kernel's UNPACK
+    epilogue on CUDA, the plain version on the CPU."""
+    if view.device.type == "cpu":
+        return unpack_channels_plain(view, channels)
+    return launch_view(view, tuple(channels), "S4_view_unpack")
 
 
 def observe(board, goals, agent_row, agent_col,
@@ -113,6 +130,146 @@ def observe(board, goals, agent_row, agent_col,
     return unpack_channels(view, output_channels)
 
 
-def transpose_view(view):
-    """(vh, vw, B) -> contiguous (B, vh, vw), dtype kept."""
+def transpose_view_plain(view):
+    """The plain version of :func:`transpose_view`."""
     return bits16(view).permute(2, 0, 1).contiguous().view(view.dtype)
+
+
+def transpose_view(view):
+    """(vh, vw, B) uint16 -> contiguous (B, vh, vw): the view kernel's KEEP
+    epilogue on CUDA, the plain version on the CPU."""
+    if view.device.type == "cpu":
+        return transpose_view_plain(view)
+    return launch_view(view, None, "S4_view_keep")
+
+
+# ---------------------------------------------------------------------------
+# The view kernel (csrc/view_kernels.cu)
+# ---------------------------------------------------------------------------
+
+# Its launch limits, which the kernel checks: staged slab widths E (each
+# divides VIEW_THREADS), threads a staged block and of the streamed
+# variant, and the most channels.
+VIEW_ENVS = (32, 16, 8)
+VIEW_THREADS = 256
+VIEW_STREAM_THREADS = 128
+MAX_CHANNELS = 16
+
+
+def view_smem(cells, envs, channels):
+    """Shared bytes of a staged block: the slab and its transpose (2 bytes
+    a cell and environment each), then for UNPACK the output buffer (C
+    bytes a cell), with room for the last group of 16 cells when the
+    block's cells are not a multiple of 16."""
+    c = 0 if channels is None else len(channels)
+    return cells * envs * (4 + c) + 16 * c
+
+
+def view_geometry(vh, vw, b, channels, vector=True):
+    """The launch geometry of the view kernel on a (``vh``, ``vw``, ``b``)
+    view: KEEP for ``channels`` None, else UNPACK of those bit positions.
+
+    A staged block keeps E environments' slab, its transpose and (UNPACK)
+    its output in shared memory, ``smem`` bytes (:func:`view_smem`); E is
+    the :func:`_build.widest_slab` of the multiples of 16 in
+    :data:`VIEW_ENVS` that fit, else of the rest, so that a block's output
+    range starts on a 16-byte boundary whatever C is.  ``vector``: the
+    slab is staged in 16-byte copies, where the view is 16-byte aligned
+    (``vector``) and ``b % 8 == 0``.  ``bulk``: a block writes its output
+    range with one bulk copy (``cp.async.bulk``) where the range, E * vh *
+    vw * C bytes (2 a cell for KEEP), is a multiple of 16; else narrow
+    stores (1 byte for UNPACK, 2 for KEEP).  Where no slab of 8 fits, the
+    streamed variant reads the view in device memory (``staged`` false).
+
+    Returns a dict of envs, threads, smem, blocks (None when streamed),
+    staged, vector and bulk.
+    """
+    cells = vh * vw
+    c = 0 if channels is None else len(channels)
+    slab = None
+    for widths in ([e for e in VIEW_ENVS if e % 16 == 0],
+                   [e for e in VIEW_ENVS if e % 16]):
+        slab = slab or _build.pick_slab(cells, 4 + c, widths, 16 * c)
+    if slab is None:
+        return dict(envs=VIEW_STREAM_THREADS, threads=VIEW_STREAM_THREADS,
+                    smem=0, blocks=None, staged=False, vector=False,
+                    bulk=False)
+    return dict(slab, smem=view_smem(cells, slab["envs"], channels),
+                threads=VIEW_THREADS, staged=True,
+                vector=bool(vector and b % 8 == 0),
+                bulk=slab["envs"] * cells * (c or 2) % 16 == 0)
+
+
+def launch_view(view, channels, kernel):
+    """The view kernel on a CUDA ``(vh, vw, B)`` uint16 view, counted
+    under ``kernel``: KEEP for ``channels`` None, else UNPACK.  The output
+    is made here, so it starts on the caching allocator's 512-byte
+    boundary, as the bulk copy needs."""
+    if channels is not None and (not 1 <= len(channels) <= MAX_CHANNELS
+                                 or not all(0 <= c < 16 for c in channels)):
+        raise ValueError(f"the view kernel takes 1 to {MAX_CHANNELS} "
+                         f"channels of bits 0-15, not {channels}")
+    _build.check_cuda(view, dtypes=(torch.uint16,))
+    vh, vw, b = view.shape
+    if channels is None:
+        out = torch.empty((b, vh, vw), dtype=torch.uint16, device=view.device)
+        bits = 0
+    else:
+        out = torch.empty((b, vh, vw, len(channels)), dtype=torch.uint8,
+                          device=view.device)
+        bits = sum(c << (4 * i) for i, c in enumerate(channels))
+    geo = view_geometry(vh, vw, b, channels, _build.vector_path(b, view))
+    if out.numel():
+        _build.launch(kernel, "view_kernels", "sl_view", view.data_ptr(),
+                      out.data_ptr(), vh, vw, b,
+                      0 if channels is None else len(channels), bits,
+                      geo["envs"], int(geo["vector"]), int(geo["bulk"]),
+                      int(geo["staged"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The observation sum (csrc/obs_sum.cu)
+# ---------------------------------------------------------------------------
+
+# Threads a block and 16-byte vectors in flight a thread (csrc/obs_sum.cu),
+# and resident blocks an SM the grid is capped at.
+SUM_THREADS = 256
+SUM_UNROLL = 4
+SUM_BLOCKS_PER_SM = 8
+
+
+def sum_blocks(nbytes):
+    """The grid of the sum kernel over ``nbytes`` bytes: a block for each
+    SUM_THREADS * SUM_UNROLL vectors of 16 bytes, at most
+    SUM_BLOCKS_PER_SM a streaming multiprocessor (the grid-stride loop
+    takes the rest), at least one."""
+    per_block = SUM_THREADS * SUM_UNROLL * 16
+    return max(1, min(-(-nbytes // per_block),
+                      SUM_BLOCKS_PER_SM * _build.SM_COUNT))
+
+
+def obs_sum_plain(obs):
+    """The plain version of :func:`obs_sum`: torch's int32 sum (uint16,
+    which has no sum on CUDA, widened first)."""
+    if obs.dtype == torch.uint8:
+        return obs.sum(dtype=torch.int32)
+    return obs.to(torch.int32).sum(dtype=torch.int32)
+
+
+def obs_sum(obs):
+    """The int32 sum (wrapping) of a uint8 or uint16 tensor of any shape,
+    as a 0-d tensor: the sum kernel on CUDA, one read of the tensor; the
+    plain version on the CPU."""
+    if obs.device.type == "cpu":
+        return obs_sum_plain(obs)
+    if obs.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"obs_sum takes uint8 or uint16, not {obs.dtype}")
+    _build.check_cuda(obs, dtypes=(obs.dtype,))
+    out = torch.zeros((), dtype=torch.int32, device=obs.device)
+    n = obs.numel()
+    if n:
+        elem = obs.element_size()
+        _build.launch("R1_obs_sum", "obs_sum", "sl_obs_sum", obs.data_ptr(),
+                      n, elem, sum_blocks(n * elem), out.data_ptr())
+    return out

@@ -6,16 +6,19 @@ PyTorch version:
   uint16 boards, ``v[i, j, b] = x[(i + rs_b) % H, (j + cs_b) % W, b]``,
   with the shifts in ``si`` rows 0 and 1 (``make_roll_kernel``);
 * S4 :func:`view_transpose`: ``(vh, vw, B)`` -> ``(B, vh, vw)``
-  (``make_transpose_kernel``);
+  (``make_transpose_kernel``), in ``csrc/view_kernels.cu``;
 * S5 :func:`nb_sum_planes`: ``sum_p nb3x3(x + p)`` on the torus over
   ``planes`` planes at the width of ``dtype``, wrapping there
   (``make_nbsum_kernel``).
 
 ``compute`` (S3, S4) and ``dtype`` (S5) name the variants the script
 times: the width the kernel holds its values at.  They leave S3's and
-S4's results unchanged; S5 wraps at the width.  The wrappers launch the
-kernels on CUDA tensors (S3 with the staged slabs of
-:func:`crop_geometry`) and run the plain versions on CPU tensors.
+S4's results unchanged; S5 wraps at the width.  S4 is the KEEP epilogue
+of the view kernel that also unpacks the step's observation
+(:func:`.obs.launch_view`), which holds the tile as uint16 words for both
+``compute`` variants.  The wrappers launch the kernels on CUDA tensors
+(S3 and S5 with the staged slabs of :func:`crop_geometry` and
+:func:`nbsum_geometry`) and run the plain versions on CPU tensors.
 """
 
 import torch
@@ -23,6 +26,7 @@ import torch
 from .. import bits16
 from . import _build
 from .life import nb_sum
+from .obs import launch_view
 
 COMPUTES = ("int32", "uint16")
 WIDTHS = ("int32", "uint16", "uint8")
@@ -120,19 +124,12 @@ def view_transpose_plain(v, compute="int32"):
 
 
 def view_transpose(v, compute="int32"):
-    """``(vh, vw, B)`` uint16 -> contiguous ``(B, vh, vw)``: kernel S4 on
-    CUDA, the plain version on the CPU."""
+    """``(vh, vw, B)`` uint16 -> contiguous ``(B, vh, vw)``: kernel S4 (the
+    view kernel's KEEP epilogue) on CUDA, the plain version on the CPU."""
     if v.device.type == "cpu":
         return view_transpose_plain(v, compute)
     _check(compute, COMPUTES, "compute")
-    _build.check_cuda(v, dtypes=(torch.uint16,))
-    vh, vw, b = v.shape
-    out = torch.empty((b, vh, vw), dtype=torch.uint16, device=v.device)
-    if v.numel():
-        _build.launch(f"S4_view_transpose[{compute}]", "obs_micro",
-                      "sl_view_transpose", v.data_ptr(), out.data_ptr(),
-                      vh * vw, b, COMPUTES.index(compute))
-    return out
+    return launch_view(v, None, f"S4_view_transpose[{compute}]")
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +143,56 @@ def nb_sum_planes_plain(x, dtype="int32", planes=1):
     xi = x.to(torch.int32)
     acc = sum(nb_sum(xi + p) for p in range(planes))
     return (acc & _MASK[dtype]).to(torch.uint16)
+
+
+# S5's launch limits, which csrc/obs_micro.cu checks (NB_MAX_ENVS,
+# NB_MAX_THREADS): staged slab widths E, widest first, and threads a
+# block; the streamed variant runs NB_STREAM_THREADS lane words a block.
+NB_ENVS = (32, 16, 8)
+NB_MAX_THREADS = 512
+NB_STREAM_THREADS = 128
+# The threads a staged block is given at least, where its rows allow: a
+# row is walked in parts until the block's lane words and parts reach it.
+NB_MIN_THREADS = 256
+
+
+def nbsum_geometry(h, w, b, width, planes, vector=True):
+    """The launch geometry of S5 on (``h``, ``w``, ``b``) boards at
+    ``width`` (one of :data:`WIDTHS`) over ``planes`` planes.
+
+    A staged block keeps E environments' cells (2 bytes each) in shared
+    memory, ``smem`` bytes; E is the widest of :data:`NB_ENVS` that leaves
+    room for two blocks on an SM.  Each lane word (a 32-bit word of 1, 2
+    or 4 environments) walks its rows in ``parts`` parts a row, the fewest
+    of 1, 2, 4, ... that give the block :data:`NB_MIN_THREADS` threads (as
+    many as the row's width leaves non-empty); ``slots`` threads a lane
+    word share its ``h * parts`` walks evenly, and the block has a thread
+    an environment at least (each stages the slab).
+    ``vector`` is 16-byte staging (:func:`_build.vector_path` of the
+    board), kept only where ``b % 8 == 0``.  Where no slab of 8 fits, the
+    streamed variant walks the board in device memory (``staged`` false).
+
+    Returns a dict of envs, slots, parts, threads, smem, blocks (None when
+    streamed), staged and vector.
+    """
+    _check(width, WIDTHS, "width")
+    _check(planes, PLANES, "planes")
+    slab = _build.pick_slab(h * w, 2, NB_ENVS, 0)
+    if slab is None:
+        return dict(envs=_LANES[width], slots=1, parts=1,
+                    threads=NB_STREAM_THREADS, smem=0, blocks=None,
+                    staged=False, vector=False)
+    words = slab["envs"] // _LANES[width]
+    parts = 1
+    while words * h * parts < NB_MIN_THREADS and 2 * parts <= w:
+        parts *= 2
+    parts = -(-w // -(-w // parts))  # no part left empty
+    walks = h * parts
+    per_thread = -(-walks // (NB_MAX_THREADS // words))
+    # A thread an environment at least: the slab is staged by every thread.
+    slots = max(-(-walks // per_thread), _LANES[width])
+    return dict(slab, slots=slots, parts=parts, threads=words * slots,
+                staged=True, vector=bool(vector and b % 8 == 0))
 
 
 def nb_sum_planes(x, dtype="int32", planes=1):
@@ -162,8 +209,11 @@ def nb_sum_planes(x, dtype="int32", planes=1):
         raise ValueError(f"the {dtype} variant holds {_LANES[dtype]} "
                          f"environments a word: B={b} must be a multiple")
     out = torch.empty_like(x)
+    geo = nbsum_geometry(h, w, b, dtype, planes, _build.vector_path(b, x))
     if b:
         _build.launch(f"S5_nb_sum[{dtype}x{planes}]", "obs_micro",
                       "sl_nb_sum_planes", x.data_ptr(), out.data_ptr(), h, w,
-                      b, WIDTHS.index(dtype), planes)
+                      b, WIDTHS.index(dtype), planes, geo["envs"],
+                      geo["slots"], geo["parts"], int(geo["vector"]),
+                      int(geo["staged"]))
     return out

@@ -26,6 +26,7 @@ import time
 import torch
 
 from ..ops import _build
+from ..ops.obs import obs_sum
 
 # Timed runs per row after one warm-up run; the best counts.
 REPEATS = 3
@@ -74,14 +75,6 @@ def timeit(name, steps, device, fn, *args, batch=None):
             if batch else "")
     print(f"{name:44s} {best / steps * 1e6:9.1f} us/step{rate}", flush=True)
     return best / steps * 1e6
-
-
-def obs_sum(obs):
-    """The int32 sum of an observation: channels (uint8) or the packed
-    words (uint16, which has no sum on CUDA: widened first)."""
-    if obs.dtype == torch.uint8:
-        return obs.sum(dtype=torch.int32)
-    return obs.to(torch.int32).sum()
 
 
 def env_loop(env, bank, batch, steps, rollout):

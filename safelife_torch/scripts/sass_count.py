@@ -3,14 +3,17 @@
     python -m safelife_torch.scripts.sass_count [LIBRARY.so ...]
 
 Without arguments it builds the libraries of ``csrc/`` (``nvcc`` needed)
-and reads ``life_kernels`` and ``env_step_kernels``.  For each kernel it
+and reads ``life_kernels``, ``env_step_kernels``, ``obs_micro`` and
+``view_kernels``.  For each kernel it
 prints the static instruction count, a digest of its instructions (the
 same digest in two builds means the same machine code: addresses and
 comments are left out) and each loop, found as a backward branch, with its
 instructions and its memory operations.  A loop's cells per iteration are
 its cell-sized stores: one for each 16-bit store (``STG.E.U16``,
-``STS.U16``) and each count-word store into shared memory (``STS``,
-``STS.64``), eight for each 16-byte store or ``cp.async``
+``STS.U16``), each count-word store into shared memory (``STS``,
+``STS.64``) and each 32- or 64-bit store to device memory (``STG.E``,
+``STG.E.64``: a cell of S5's lane word of 2 or 4 environments), eight for
+each 16-byte store or ``cp.async``
 (``STG.E.128``, ``LDGSTS.E.BYPASS.128``), since a 16-byte access moves one
 cell of 8 environments.  Instructions a cell = the loop's instructions /
 its cells.  Static counts: every path of a loop's body is counted, taken
@@ -31,7 +34,8 @@ _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 # Memory operations by class (base opcode and width in bits), and the
 # cells one store of each class writes.
-_CELL_STORES = {"STG.16": 1, "STS.16": 1, "STS.32": 1, "STS.64": 1,
+_CELL_STORES = {"STG.16": 1, "STG.32": 1, "STG.64": 1,
+                "STS.16": 1, "STS.32": 1, "STS.64": 1,
                 "STG.128": 8, "LDGSTS.128": 8}
 _WIDTHS = {"U8": 8, "S8": 8, "U16": 16, "S16": 16, "64": 64, "128": 128}
 
@@ -133,8 +137,8 @@ def main(argv=None):
     args = sys.argv[1:] if argv is None else argv
     if not args:
         built = _build.build_all()
-        args = [built[name][0] for name in ("life_kernels",
-                                            "env_step_kernels")]
+        args = [built[name][0] for name in (
+            "life_kernels", "env_step_kernels", "obs_micro", "view_kernels")]
     for library in args:
         report(library)
 
