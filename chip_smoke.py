@@ -60,18 +60,36 @@ Phases, each an assertion that ends the run on failure:
    empty kernel launched as T1 is), K1's time on one state with its agents
    where they are and moved to a corner, and a profile of stepbench's full
    step at its batch;
-8. one JSON line listing the kernels, and last the result line; before
-   it the run fails if the build log shows a K1-K8, S3-S5, R1 or view
-   kernel instantiation that spills.
+8. the training path (``safelife_torch.training``) at the 33x33 training
+   view: the training wrapper stack (movement bonus, side-effect penalty
+   with scheduled coefficients, continuing) through K1, K2 and the view
+   kernel's UNPACK against the same stack on the plain step, bit for bit,
+   on append-still and append-dynamic at B = 4096, 1001 and 7 for 20
+   steps with resets; the policy net on the card against the CPU (float32
+   with TF32 off, and the bfloat16 trunk against float32, each within its
+   stated tolerance); ``Trainer`` with ``PPOConfig()`` defaults on
+   append-still for 3 batches at 64 and at 4096 environments (finite
+   losses, every parameter and ``spe`` changed, a checkpoint restored bit
+   for bit, ``load_policy`` drawing actions, K1, K2 and UNPACK launched by
+   the run); then the learner's env-steps/s (rollout + GAE + update) at
+   both widths, ms a batch of the rollout and of the update, and a
+   profile of one batch at 4096 (top device ops, K2's and UNPACK's share,
+   idle share);
+9. one JSON line listing the kernels (K1's, K2's and UNPACK's launches
+   those of phases 5 and 8), and last the result line; before it the run
+   fails if the build log shows a K1-K8, S3-S5, R1 or view kernel
+   instantiation that spills.
 
 Exits nonzero, printing no result, when no CUDA device is present.
 """
 
 import collections
+import dataclasses
 import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +97,7 @@ import torch
 
 from safelife_torch import bench, bits16, scripts
 from safelife_torch import cells as C
+from safelife_torch.env import wrappers as W
 from safelife_torch.env.env import BatchedSafeLifeEnv, EnvConfig
 from safelife_torch.levels import loader, synth
 from safelife_torch.ops import _build, env_step_kernels as esk, life_kernels
@@ -88,6 +107,7 @@ from safelife_torch.ops import rng
 from safelife_torch.ops.life import nb_sum
 from safelife_torch.scripts import (ablock_bench, obs_micro, stepbench,
                                     stress_micro)
+from safelife_torch.training import driver, model, ppo
 from safelife_torch.utils import integrity
 
 MAIN_BATCH = 65536
@@ -1375,6 +1395,282 @@ def k1_state_probe(bank, dev):
               f"in: {ms:.4f} ms, {what}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the training path.
+# ---------------------------------------------------------------------------
+
+TRAIN_VIEW = (33, 33)
+TRAIN_ENVS = (64, 4096)   # the CLI's default, and a wide batch
+TRAIN_BATCHES = 3
+# Schedules of the global step, evaluated on the device every step.
+TRAIN_PENALTY = W.linear_schedule([0, 40_000], [0.0, 1.0])
+TRAIN_MIN_PERF = W.linear_schedule([0, 40_000], [0.5, 0.1])
+# The trunk's float32 convolutions and matmuls on the card (TF32 off)
+# against the CPU's: cuDNN sums in other orders.
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
+# The trunk in bfloat16 (8 significant bits) against float32.
+BF16_TOL = dict(rtol=3e-2, atol=2e-2)
+
+
+def core_env(env):
+    while hasattr(env, "env"):
+        env = env.env
+    return env
+
+
+def step_fields(state, ts):
+    """The step's outputs (obs, rewards after the wrappers, done, the
+    side-effect count, episode stats), the wrappers' extra state and the
+    core state's leaves, by name."""
+    out = {f"ts.{f.name}": getattr(ts, f.name)
+           for f in dataclasses.fields(ts) if f.name != "state_before_reset"}
+    depth = 0
+    while isinstance(state, W.WrapperState):
+        # (The movement bonus's step index is a host int.)
+        out.update({f"extra{depth}.{k}": torch.as_tensor(v)
+                    for k, v in state.extra.items()})
+        state, depth = state.inner, depth + 1
+    out.update({f"state.{f.name}": getattr(state, f.name)
+                for f in dataclasses.fields(state)})
+    return out
+
+
+def check_training_env(dev, steps=ROLLOUT):
+    """The training wrapper stack at the 33x33 view through K1, K2 and the
+    view kernel's UNPACK against the same stack on the plain step, bit for
+    bit: the same actions, fresh levels and generator seeds."""
+    cfg = driver.TrainerConfig(view_shape=TRAIN_VIEW, time_limit=8,
+                               impact_penalty=TRAIN_PENALTY,
+                               min_performance=TRAIN_MIN_PERF)
+    for suite in ("append-still", "append-dynamic"):
+        bank = load_bank(suite, dev)
+        for b in (4096, 1001, 7):
+            kern = driver.make_training_env(cfg, dev)
+            plain = driver.make_training_env(cfg, dev)
+            core_env(plain).config = dataclasses.replace(
+                core_env(plain).config, use_kernels=False)
+            assert core_env(kern).uses_kernels()
+            assert not core_env(plain).uses_kernels()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(7)
+            actions = torch.randint(0, 9, (steps, b), generator=gen,
+                                    device=dev)
+            fresh = core_env(kern).sample_fresh_levels(bank, b, gen)
+            states = [env.reset_all(bank, b, gen.manual_seed(8))
+                      for env in (kern, plain)]
+            gens = [torch.Generator(device=dev).manual_seed(9)
+                    for _ in range(2)]
+            resets = 0
+            for t in range(steps):
+                out = []
+                for i, env in enumerate((kern, plain)):
+                    states[i], ts = env.step(states[i], bank, actions[t],
+                                             gens[i], fresh_levels=fresh)
+                    out.append(step_fields(states[i], ts))
+                got, want = out
+                assert got.keys() == want.keys()
+                for name in want:
+                    assert_bit_equal([got[name]], [want[name]],
+                                     f"training stack {suite} B={b} step "
+                                     f"{t}: {name}")
+                resets += int(got["ts.done"].sum())
+            assert resets > 0
+        print(f"training stack (MovementBonus, SideEffectPenalty with "
+              f"scheduled coefficients, Continuing) at view {TRAIN_VIEW}: "
+              f"{suite}, B = 4096, 1001, 7, {steps} steps with resets, "
+              f"kernels == plain step bit for bit (obs, rewards, done, "
+              f"side effects, episode stats, extras, state)")
+
+
+def check_model(dev, b=1024):
+    """The net on the card against the net on the CPU, the same weights:
+    float32 with TF32 off, and the bfloat16 trunk (autocast) against
+    float32."""
+    gen = torch.Generator().manual_seed(3)
+    obs = (torch.rand((b, *TRAIN_VIEW, 15), generator=gen) < 0.2).to(
+        torch.uint8)
+    cpu = model.SafeLifeCNN(view_shape=TRAIN_VIEW,
+                            compute_dtype=torch.float32, generator=gen)
+    with torch.no_grad():
+        want = cpu(obs)
+    errs = {}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            net = model.SafeLifeCNN(view_shape=TRAIN_VIEW,
+                                    compute_dtype=dtype).to(dev)
+            net.load_state_dict(cpu.state_dict())
+            with torch.no_grad():
+                got = net(obs.to(dev))
+            for g, w, what in zip(got, want, ("logits", "values")):
+                torch.testing.assert_close(g.cpu(), w, **tol,
+                                           msg=f"{dtype} {what}")
+            errs[str(dtype)] = max(max_abs_err([g.cpu()], [w])
+                                   for g, w in zip(got, want))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    print(f"model on the card against the CPU at B={b}, view {TRAIN_VIEW}: "
+          f"float32 (TF32 off) max abs err {errs['torch.float32']:.3g} "
+          f"(tolerance {F32_TOL}); bfloat16 trunk {errs['torch.bfloat16']:.3g}"
+          f" (tolerance {BF16_TOL})")
+
+
+def make_trainer(dev, num_envs, logdir):
+    return driver.Trainer(
+        driver.TrainerConfig(num_envs=num_envs, view_shape=TRAIN_VIEW,
+                             report_every=num_envs * ROLLOUT,
+                             save_every=10**9, record_videos=False,
+                             logdir=logdir),
+        ppo.PPOConfig(), level_paths=("benchmarks/v1.0/append-still",),
+        device=dev)
+
+
+def train_path(dev, logdir):
+    """Trainer on append-still at the 33x33 view: TRAIN_BATCHES batches at
+    each of TRAIN_ENVS, with PPOConfig() defaults; returns the launches of
+    those runs."""
+    launches = collections.Counter()
+    for n in TRAIN_ENVS:
+        run = f"{logdir}/run{n}"
+        trainer = make_trainer(dev, n, run)
+        before = {k: v.clone() for k, v in trainer.net.state_dict().items()}
+        reports = []
+        t = time.perf_counter()
+        # Two batches leave the global step short of this; the third
+        # passes it (only episodes that ended drop steps from the count).
+        _, run_launches = counted(lambda: trainer.train(
+            total_steps=(TRAIN_BATCHES - 1) * ROLLOUT * n + 1,
+            progress_fn=lambda s, m: reports.append(m)))
+        seconds = time.perf_counter() - t
+        launches.update(run_launches)
+        assert trainer.train_state.update_step == TRAIN_BATCHES
+        assert len(reports) == TRAIN_BATCHES
+        for m in reports:
+            for k in ("policy_loss", "value_loss", "entropy",
+                      "pseudo_entropy", "mean_reward"):
+                assert np.isfinite(m[k]).all(), (k, m[k])
+        after = trainer.net.state_dict()
+        changed = [k for k in after if not torch.equal(before[k], after[k])]
+        assert len(changed) == len(after), changed
+        assert trainer.train_state.spe.item() != 1.0
+        for name in ("K1_action", "K2_advance_fold[static_spawnless]",
+                     "S4_view_unpack"):
+            assert run_launches.get(name, 0) >= TRAIN_BATCHES * ROLLOUT, (
+                name, run_launches)
+        # The checkpoint train() wrote at its end restores the same net.
+        again = make_trainer(dev, n, run)
+        assert again.restore_checkpoint()
+        for k, v in after.items():
+            assert torch.equal(again.net.state_dict()[k], v), k
+        assert again.train_state.spe.item() == trainer.train_state.spe.item()
+        assert again.global_step() == trainer.global_step()
+        policy, view = driver.load_policy(run, dev)
+        actions = policy(trainer.obs, torch.Generator(dev).manual_seed(0))
+        assert view == TRAIN_VIEW and actions.shape == (n,)
+        assert 0 <= int(actions.min()) and int(actions.max()) < 9
+        last = reports[-1]
+        print(f"trainer: append-still, {n} envs, view {TRAIN_VIEW}, "
+              f"PPOConfig() defaults: {TRAIN_BATCHES} batches "
+              f"({trainer.global_step()} env steps) in {seconds:.2f} s with "
+              f"the integrity checks and a checkpoint; last batch "
+              f"policy_loss {float(last['policy_loss']):.5g}, value_loss "
+              f"{float(last['value_loss']):.5g}, entropy "
+              f"{float(last['entropy']):.5g}, spe "
+              f"{trainer.train_state.spe.item():.5g}; checkpoint restored "
+              f"bit for bit; load_policy drew {n} actions; launches "
+              f"{run_launches}")
+    return launches
+
+
+def learner_throughput(dev, smi, batches=3):
+    """Env-steps/s of train_batch (rollout + GAE + update) at each of
+    TRAIN_ENVS, ms a batch of the rollout and of the update, and a profile
+    of one batch at the widest."""
+    for n in TRAIN_ENVS:
+        trainer = make_trainer(dev, n, None)
+        ts, ppo_ = trainer.train_state, trainer.ppo
+        state, obs, gen = trainer.env_state, trainer.obs, trainer.generator
+        state, obs, _ = ppo_.train_batch(ts, state, obs, trainer.bank, gen)
+        torch.cuda.synchronize()
+
+        def run():
+            out = state, obs
+            for _ in range(batches):
+                out = ppo_.train_batch(ts, *out, trainer.bank, gen)[:2]
+            return out
+
+        t = time.perf_counter()
+        (state, obs), launched = counted(run)
+        wall = (time.perf_counter() - t) / batches
+        per_batch = {k: v / batches for k, v in launched.items()}
+        roll_ms = upd_ms = 0.0
+        for _ in range(batches):
+            t = time.perf_counter()
+            state, obs, traj, _ = ppo.rollout(ppo_.cfg, ts.net, ppo_.env,
+                                              trainer.bank, state, obs, gen)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ret, adv = ppo.compute_gae(ppo_.cfg, traj.reward, traj.done,
+                                       traj.value)
+            ppo_.update(ts, traj, ret, adv, gen)
+            torch.cuda.synchronize()
+            roll_ms += (t2 - t) * 1e3 / batches
+            upd_ms += (time.perf_counter() - t2) * 1e3 / batches
+        print(f"learner env-steps/s (rollout + GAE + update, PPOConfig() "
+              f"defaults, view {TRAIN_VIEW}, append-still) at {n} envs: "
+              f"{n * ROLLOUT / wall:.0f} ({wall * 1e3:.2f} ms a batch of "
+              f"{n * ROLLOUT} env steps; rollout {roll_ms:.2f} ms, GAE + "
+              f"update {upd_ms:.2f} ms); launches a batch {per_batch} on "
+              f"{smi}")
+    profile_batch(trainer, state, obs)
+
+
+def profile_batch(trainer, state, obs):
+    """Device time by kernel over one train_batch, K2's and the unpack's
+    shares, and the idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.ppo.train_batch(trainer.train_state, state, obs,
+                                trainer.bank, trainer.generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    assert busy > 0, "the profiler recorded no device time"
+    share = lambda frag: sum(ms for k, ms in by_name.items()  # noqa: E731
+                             if frag in k) / busy
+    n = trainer.cfg.num_envs
+    print(f"profile of one train_batch at {n} envs: wall {wall_ms:.2f} ms, "
+          f"device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.1%}; "
+          f"K2 advance_kernel {share('advance_kernel'):.2%}, view kernel "
+          f"(UNPACK) {share('view_kernel'):.2%}, K1 action_kernel "
+          f"{share('action_kernel'):.2%} of the device time")
+    print("  top device ops:")
+    for kname, ms in by_name.most_common(12):
+        print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {kname[:100]}")
+
+
+def training(dev, smi):
+    """Phase 8; returns the training path's launches."""
+    check_training_env(dev)
+    check_model(dev)
+    with tempfile.TemporaryDirectory() as logdir:
+        launches = train_path(dev, logdir)
+        learner_throughput(dev, smi)
+    return launches
+
+
 # The kernels held to 0 spills, by library: entry-function name fragments
 # and how many instantiations the build log must show.  K1: 5 block
 # widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
@@ -1499,12 +1795,18 @@ def main():
             env.reset_all(still, SCRIPT_BATCH, gen))
     print(f"phase 7: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    trained = training(dev, smi)
+    print(f"phase 8: {time.perf_counter() - t:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = timings[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=err, ms=ms,
+            # The main path's launches and the training path's.
+            launches=launches[name] + trained.get(name, 0), max_abs_err=err,
+            ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             # R1's plain version is one PyTorch call (a sum).
             library_ms=plain_ms if name == "R1_obs_sum" else None))

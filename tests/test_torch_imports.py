@@ -45,9 +45,11 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(proc.stdout.strip()) >= 16, proc.stdout
 
 
-def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
+def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch, tmp_path):
     from safelife_torch.env.env import BatchedSafeLifeEnv
     from safelife_torch.levels import loader
+    from safelife_torch.training.driver import (Trainer, TrainerConfig,
+                                                load_policy)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -55,3 +57,11 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchedSafeLifeEnv()
     assert BatchedSafeLifeEnv(device="cpu").device.type == "cpu"
+    cfg = TrainerConfig(num_envs=4, view_shape=(17, 17), record_videos=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_policy(str(tmp_path))
+    trainer = Trainer(cfg, device="cpu")
+    assert trainer.device.type == "cpu"
+    assert next(trainer.net.parameters()).device.type == "cpu"
