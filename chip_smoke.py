@@ -75,10 +75,26 @@ Phases, each an assertion that ends the run on failure:
    both widths, ms a batch of the rollout and of the update, and a
    profile of one batch at 4096 (top device ops, K2's and UNPACK's share,
    idle share);
-9. one JSON line listing the kernels (K1's, K2's and UNPACK's launches
-   those of phases 5 and 8), and last the result line; before it the run
-   fails if the build log shows a K1-K8, S3-S5, R1 or view kernel
-   instantiation that spills.
+9. the evaluation path (``safelife_torch.benchmarking``,
+   ``safelife_torch.side_effects``) and the recurrent policy: every v1.0
+   suite through ``run_benchmark`` on the kernels (K1, K3 under the
+   suite's rule, UNPACK, and K5 for the side-effect co-evolution) and on
+   the plain path with the same generator seeds (view 25x25, time limit
+   50, 16 side-effect samples, a deterministic policy): records and
+   occupancy distributions bit for bit, scores within rtol 1e-5, launches
+   counted; K5 at the co-evolution's shape against its plain version; the
+   Sinkhorn EMD on the card against float64 on the CPU, TF32 off inside
+   it whatever the caller set; ``run_benchmark`` at full width on
+   append-still and prune-spawn (100 levels, view 33x33, time limit 1000,
+   250 samples, a ``SafeLifeCNN`` policy) with the seconds of the step
+   loop, the co-evolution and the Sinkhorn EMD; the LSTM net on the card
+   against the CPU; a recurrent ``Trainer`` for 3 batches at 64 and 4096
+   environments (checkpoint round trip, learner env-steps/s) and
+   ``load_policy`` of its run driving ``run_benchmark`` with its carry;
+   and a ``Trainer`` with ``eval_suite`` evaluating once;
+10. one JSON line listing the kernels (the launches of phases 5, 8 and
+   9), and last the result line; before it the run fails if the build
+   log shows a K1-K8, S3-S5, R1 or view kernel instantiation that spills.
 
 Exits nonzero, printing no result, when no CUDA device is present.
 """
@@ -1520,12 +1536,12 @@ def check_model(dev, b=1024):
           f" (tolerance {BF16_TOL})")
 
 
-def make_trainer(dev, num_envs, logdir):
+def make_trainer(dev, num_envs, logdir, **kw):
     return driver.Trainer(
         driver.TrainerConfig(num_envs=num_envs, view_shape=TRAIN_VIEW,
                              report_every=num_envs * ROLLOUT,
                              save_every=10**9, record_videos=False,
-                             logdir=logdir),
+                             logdir=logdir, **kw),
         ppo.PPOConfig(), level_paths=("benchmarks/v1.0/append-still",),
         device=dev)
 
@@ -1671,6 +1687,450 @@ def training(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: suite evaluation, side-effect scoring and the recurrent policy.
+# ---------------------------------------------------------------------------
+
+# Kernel path against plain path on every v1.0 suite.
+EVAL_VIEW = (25, 25)
+EVAL_TIME_LIMIT = 50
+EVAL_SAMPLES = 16
+# Both paths run the same draws, so the distributions are bit-equal and
+# the Sinkhorn chains see the same inputs on one device.
+EVAL_SCORE_RTOL = 1e-5
+# Full width: the training view, the time limit and TrainerConfig's
+# side-effect samples, on a static spawnless suite and a Philox-draw one.
+FULL_SUITES = ("append-still", "prune-spawn")
+FULL_TIME_LIMIT = 1000
+FULL_SAMPLES = driver.TrainerConfig().eval_side_effect_samples
+# Sinkhorn in float32 on the card against float64 on the CPU (200
+# iterations of a contraction; the Gibbs kernel reaches 2e-22, which
+# float32 holds).
+SINKHORN_RTOL = 1e-5
+# The LSTM net on the card against the CPU in float32 (TF32 off): cuDNN
+# and cuBLAS sum in other orders.
+LSTM_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+EVAL_KERNELS = ("K1_action", "S4_view_unpack", "K5_advance_with_field")
+
+
+def hash_policy(obs, generator=None):
+    """A deterministic policy: a weighted sum of the observation, mod 9."""
+    c = obs.shape[-1]
+    weights = 1 + torch.arange(c, dtype=torch.int32, device=obs.device)
+    return (obs.to(torch.int32) * weights).sum((1, 2, 3)) % 9
+
+
+def eval_launches(launched, bank, steps, catch_up, samples):
+    """Assert the launches of one suite eval on the kernels: K1 and K3 once
+    a step, UNPACK once a step and once for the first observation, K5 once
+    a catch-up step and twice a sample."""
+    rule = rule_of(bank)
+    want = {"K1_action": steps, f"K3_advance_noreset[{rule}]": steps,
+            "S4_view_unpack": steps + 1,
+            "K5_advance_with_field": catch_up + 2 * samples if samples else 0}
+    for name, n in want.items():
+        assert launched.get(name, 0) == n, (name, n, launched)
+
+
+def check_eval_paths(dev, smi):
+    """Every v1.0 suite through run_benchmark on the kernels and on the
+    plain path (the plain step with the kernels' Philox fields, the plain
+    co-evolution), the same generator seeds: records and occupancy
+    distributions bit for bit, scores within EVAL_SCORE_RTOL."""
+    from safelife_torch import benchmarking, side_effects as se
+    launches = collections.Counter()
+    kw = dict(view_shape=EVAL_VIEW, time_limit=EVAL_TIME_LIMIT,
+              side_effect_samples=EVAL_SAMPLES, device=dev)
+    worst = 0.0
+    for suite in SUITES:
+        bank = load_bank(suite, dev, num_levels=100)
+        out = {}
+        for use_kernels in (True, False):
+            gen = torch.Generator(dev).manual_seed(11)
+            out[use_kernels] = counted(lambda: benchmarking.run_benchmark(
+                suite, hash_policy, generator=gen, use_kernels=use_kernels,
+                **kw))
+            # The same play again for the distributions.
+            env = BatchedSafeLifeEnv(EnvConfig(
+                view_shape=EVAL_VIEW, time_limit=EVAL_TIME_LIMIT,
+                auto_reset=False, use_kernels=use_kernels), device=dev)
+            gen.manual_seed(11)
+            _, state = benchmarking.play_suite(env, bank, hash_policy,
+                                               bank.num_levels, gen)
+            dists = se.accumulate_distributions(
+                state.init_board, state.board, state.spawn_prob,
+                state.episode_length, EVAL_SAMPLES, gen,
+                catch_up_steps=EVAL_TIME_LIMIT, use_kernels=use_kernels)
+            out[use_kernels] += (dists,)
+        (kern, launched, kdist), (plain, plain_launched, pdist) = (
+            out[True], out[False])
+        for name in ("length", "reward", "completed", "possible",
+                     "performance"):
+            assert kern[name].dtype == plain[name].dtype, name
+            assert np.array_equal(kern[name], plain[name]), (suite, name)
+        assert_bit_equal(kdist, pdist, f"occupancy distributions {suite}")
+        for name in ("side_effects", "side_effect_mass"):
+            np.testing.assert_allclose(kern[name], plain[name],
+                                       rtol=EVAL_SCORE_RTOL, atol=0,
+                                       err_msg=f"{suite} {name}")
+            diff = np.abs(kern[name] - plain[name])
+            worst = max(worst, float((diff / np.maximum(
+                np.abs(plain[name]), 1e-30)).max()))
+        steps = launched["K1_action"]
+        assert steps % 64 == 0 and steps >= EVAL_TIME_LIMIT, launched
+        eval_launches(launched, bank, steps, EVAL_TIME_LIMIT, EVAL_SAMPLES)
+        for name in ("K1_action", "K5_advance_with_field"):
+            assert name not in plain_launched, (name, plain_launched)
+        assert not any(k.startswith("K3") for k in plain_launched)
+        launches.update(launched)
+        print(f"eval {suite} ({rule_of(bank)} rule): 100 levels, view "
+              f"{EVAL_VIEW}, time limit {EVAL_TIME_LIMIT}, "
+              f"{EVAL_SAMPLES} side-effect samples: kernels == plain "
+              f"(records and occupancy distributions bit for bit); mean "
+              f"performance {kern['performance'].mean():.4f}, mean side "
+              f"effects {kern['side_effects'].mean():.4f}; launches "
+              f"{launched} on {smi}")
+    print(f"eval kernel path against plain path on the {len(SUITES)} v1.0 "
+          f"suites: largest relative score difference {worst:.3g} "
+          f"(tolerance rtol {EVAL_SCORE_RTOL}) on {smi}")
+    return launches
+
+
+def check_k5_eval_shape(dev, bank, smi):
+    """K5 at the co-evolution's shape (one board a level) against its plain
+    version, with a torch.rand field at the suite's spawn rates; and its
+    time beside the plain version's."""
+    gen = torch.Generator(dev).manual_seed(12)
+    board = bank.board
+    prob = bank.spawn_prob.to(torch.float32)[None, None, :]
+    field = torch.rand(board.shape, generator=gen, device=dev) < prob
+    got = life_kernels.advance_with_field(board, field)
+    want = life_kernels.advance_with_field_plain(board, field)
+    assert_bit_equal([got], [want], "K5 at the co-evolution's shape")
+    ms = time_ms(lambda: life_kernels.advance_with_field(board, field), 200)
+    plain_ms = time_ms(
+        lambda: life_kernels.advance_with_field_plain(board, field), 20)
+    print(f"K5 at the co-evolution's shape {tuple(board.shape)}: bit-equal "
+          f"to plain; {ms:.4f} ms a launch (plain {plain_ms:.4f} ms) on "
+          f"{smi}")
+
+
+def check_sinkhorn(dev, smi):
+    """The Sinkhorn EMD on the card (float32) against a float64 CPU
+    computation of the same iteration, on 26x26 grids; TF32 stays off
+    inside it whatever the caller set."""
+    from safelife_torch import side_effects as se
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on"
+    rng_ = np.random.RandomState(13)
+    n, rows = 26 * 26, 64
+    a = np.zeros((rows, n), np.float32)
+    b = np.zeros((rows, n), np.float32)
+    for r in range(rows):
+        for x in (a, b):
+            pts = rng_.choice(n, rng_.randint(1, 40), replace=False)
+            x[r, pts] = rng_.rand(len(pts))
+    b[5] = a[5]
+    a[7] = 0.0
+    cost = se.torus_distances((26, 26))
+    got = se.sinkhorn_emd(torch.as_tensor(a, device=dev),
+                          torch.as_tensor(b, device=dev), cost)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        again = se.sinkhorn_emd(torch.as_tensor(a, device=dev),
+                                torch.as_tensor(b, device=dev), cost)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert_bit_equal([again], [got], "Sinkhorn with TF32 asked for")
+    want = sinkhorn_f64(a.astype(np.float64), b.astype(np.float64), cost)
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=SINKHORN_RTOL,
+                               atol=0)
+    rel = np.abs(got.cpu().numpy() - want) / np.maximum(np.abs(want), 1e-30)
+    print(f"Sinkhorn EMD on the card (float32, TF32 off) against float64 "
+          f"on the CPU, {rows} rows of 26x26: largest relative difference "
+          f"{rel.max():.3g} (tolerance rtol {SINKHORN_RTOL}); the same bits "
+          f"when the caller turns TF32 on; on {smi}")
+
+
+def sinkhorn_f64(a, b, cost, eps=0.02, iters=200, penalty=1.0):
+    """The Sinkhorn iteration of ``side_effects.sinkhorn_emd`` in float64
+    numpy, written out again as the reference."""
+    n = cost.shape[0]
+    sum_a, sum_b = a.sum(-1, keepdims=True), b.sum(-1, keepdims=True)
+    a1 = np.concatenate([a, np.maximum(sum_b - sum_a, 0)], -1)
+    b1 = np.concatenate([b, np.maximum(sum_a - sum_b, 0)], -1)
+    cost1 = np.full((n + 1, n + 1), penalty)
+    cost1[:n, :n] = cost
+    cost1[n, n] = 0.0
+    total = a1.sum(-1, keepdims=True)
+    scale = np.where(total > 0, total, 1.0)
+    a1, b1 = a1 / scale, b1 / scale
+    kern = np.exp(-cost1 / eps)
+    u = np.ones_like(a1)
+    for _ in range(iters):
+        v = b1 / (u @ kern + 1e-30)
+        u = a1 / (v @ kern.T + 1e-30)
+    v = b1 / (u @ kern + 1e-30)
+    return ((u @ (kern * cost1)) * v).sum(-1) * scale[..., 0]
+
+
+def full_width_eval(dev, smi):
+    """run_benchmark at full width: every level, the 33x33 view, time limit
+    1000, TrainerConfig's side-effect samples, a SafeLifeCNN policy."""
+    from safelife_torch import benchmarking
+    launches = collections.Counter()
+    for suite in FULL_SUITES:
+        net = model.SafeLifeCNN(
+            view_shape=TRAIN_VIEW,
+            generator=torch.Generator().manual_seed(0)).to(dev)
+        gen = torch.Generator(dev).manual_seed(0)
+        t = time.perf_counter()
+        res, launched = counted(lambda: benchmarking.run_benchmark(
+            suite, driver._sampling_policy(net), generator=gen,
+            view_shape=TRAIN_VIEW, time_limit=FULL_TIME_LIMIT,
+            side_effect_samples=FULL_SAMPLES, device=dev))
+        seconds = time.perf_counter() - t
+        bank = load_bank(suite, dev, num_levels=100)
+        eval_launches(launched, bank, launched["K1_action"], FULL_TIME_LIMIT,
+                      FULL_SAMPLES)
+        for name in ("performance", "reward", "side_effects",
+                     "side_effect_mass"):
+            assert np.isfinite(res[name]).all(), name
+        assert len(res["performance"]) == 100
+        coevolution, sinkhorn = res["side_effect_time"]
+        launches.update(launched)
+        print(f"suite eval at full width: {suite}, 100 levels, view "
+              f"{TRAIN_VIEW}, time limit {FULL_TIME_LIMIT}, {FULL_SAMPLES} "
+              f"side-effect samples, SafeLifeCNN policy (seed 0): "
+              f"{seconds:.2f} s in all; step loop {res['wall_time']:.2f} s "
+              f"({launched['K1_action']} steps); side effects "
+              f"{coevolution + sinkhorn:.2f} s (co-evolution "
+              f"{coevolution:.3f} s, Sinkhorn {sinkhorn:.3f} s); mean "
+              f"performance {res['performance'].mean():.4f}, reward "
+              f"{res['reward'].mean():.4f}, side effects "
+              f"{res['side_effects'].mean():.4f}, length "
+              f"{res['length'].mean():.1f}; launches "
+              f"{ {k: launched[k] for k in sorted(launched)} } on {smi}")
+        if suite == "append-still":
+            check_k5_eval_shape(dev, bank, smi)
+            profile_eval(suite, driver._sampling_policy(net), dev, smi)
+    return launches
+
+
+def profile_eval(suite, policy, dev, smi):
+    """Device time by kernel over one suite eval at full width but a
+    quarter of the time limit, the shares of the step's kernels, of the
+    net and of the side-effect scoring, and the idle share of the wall.
+    Device activity only, and the shorter eval: reading the trace of a
+    whole one (about 90,000 kernels) took 23 s of host time beside an
+    H100."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from safelife_torch import benchmarking
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        benchmarking.run_benchmark(
+            suite, policy, generator=torch.Generator(dev).manual_seed(0),
+            view_shape=TRAIN_VIEW, time_limit=FULL_TIME_LIMIT // 4,
+            side_effect_samples=FULL_SAMPLES, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    assert busy > 0, "the profiler recorded no device time"
+    share = lambda *frags: sum(ms for k, ms in by_name.items()  # noqa: E731
+                               if any(f in k for f in frags)) / busy
+    print(f"profile of one suite eval at full width, time limit "
+          f"{FULL_TIME_LIMIT // 4} ({suite}; read in "
+          f"{time.perf_counter() - t0:.1f} s): wall "
+          f"{wall_ms:.1f} ms, device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall_ms:.1%}; K3 advance_kernel "
+          f"{share('advance_kernel'):.2%}, K1 action_kernel "
+          f"{share('action_kernel'):.2%}, view kernel (UNPACK) "
+          f"{share('view_kernel'):.2%}, K5 rule_kernel "
+          f"{share('rule_kernel'):.2%}, GEMMs (Sinkhorn, the net's dense "
+          f"layers) {share('gemm', 'sgemm', 'Kernel2'):.2%} of the device "
+          f"time; on {smi}")
+    print("  top device ops:")
+    for kname, ms in by_name.most_common(12):
+        print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {kname[:100]}")
+
+
+def check_lstm_model(dev, smi, b=1024):
+    """The LSTM net on the card against the CPU, the same weights: float32
+    with TF32 off, and the bfloat16 trunk against float32; nn.LSTMCell
+    against the plain step on the card."""
+    gen = torch.Generator().manual_seed(3)
+    obs = (torch.rand((b, *TRAIN_VIEW, 15), generator=gen) < 0.2).to(
+        torch.uint8)
+    carry = tuple(torch.randn((b, model.LSTM_UNITS), generator=gen) * 0.5
+                  for _ in range(2))
+    cpu = model.SafeLifeLSTMNet(view_shape=TRAIN_VIEW,
+                                compute_dtype=torch.float32, generator=gen)
+    with torch.no_grad():
+        (c, h), (logits, values) = cpu(obs, carry)
+    want = (c, h, logits, values)
+    errs = {}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for dtype, tol in ((torch.float32, LSTM_F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            net = model.SafeLifeLSTMNet(view_shape=TRAIN_VIEW,
+                                        compute_dtype=dtype).to(dev)
+            net.load_state_dict(cpu.state_dict())
+            with torch.no_grad():
+                (c, h), (logits, values) = net(
+                    obs.to(dev), tuple(x.to(dev) for x in carry))
+            got = (c, h, logits, values)
+            for g, w, what in zip(got, want, ("c", "h", "logits", "values")):
+                torch.testing.assert_close(g.cpu(), w, **tol,
+                                           msg=f"LSTM {dtype} {what}")
+            errs[str(dtype)] = max_abs_err([g.cpu() for g in got], want)
+        x = torch.randn((b, 1600), generator=gen).to(dev)
+        cell = net.lstm
+        hc = tuple(t.to(dev) for t in carry)
+        with torch.no_grad():
+            (c2, h2), _ = model.lstm_step(x, hc, cell.weight_ih,
+                                          cell.weight_hh, cell.bias_ih,
+                                          cell.bias_hh)
+            h1, c1 = cell(x, (hc[1], hc[0]))
+        torch.testing.assert_close(c1, c2, **LSTM_F32_TOL)
+        torch.testing.assert_close(h1, h2, **LSTM_F32_TOL)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    print(f"LSTM net on the card against the CPU at B={b}, view "
+          f"{TRAIN_VIEW}: float32 (TF32 off) max abs err "
+          f"{errs['torch.float32']:.3g} (tolerance {LSTM_F32_TOL}); "
+          f"bfloat16 trunk {errs['torch.bfloat16']:.3g} (tolerance "
+          f"{BF16_TOL}); nn.LSTMCell == plain step within {LSTM_F32_TOL}; "
+          f"on {smi}")
+
+
+def recurrent_path(dev, smi, logdir):
+    """A recurrent Trainer on append-still for TRAIN_BATCHES batches at each
+    of TRAIN_ENVS, its checkpoint round trip, its learner env-steps/s, and
+    load_policy of the run driving run_benchmark with its carry."""
+    from safelife_torch import benchmarking
+    launches = collections.Counter()
+    for n in TRAIN_ENVS:
+        run = f"{logdir}/lstm{n}"
+        trainer = make_trainer(dev, n, run, recurrent=True)
+        before = {k: v.clone() for k, v in trainer.net.state_dict().items()}
+        reports = []
+        t = time.perf_counter()
+        _, run_launches = counted(lambda: trainer.train(
+            total_steps=(TRAIN_BATCHES - 1) * ROLLOUT * n + 1,
+            progress_fn=lambda s, m: reports.append(m)))
+        seconds = time.perf_counter() - t
+        launches.update(run_launches)
+        assert trainer.train_state.update_step == TRAIN_BATCHES
+        for m in reports:
+            for k in ("policy_loss", "value_loss", "entropy", "mean_reward"):
+                assert np.isfinite(m[k]).all(), (k, m[k])
+        after = trainer.net.state_dict()
+        changed = {k for k in after if not torch.equal(before[k], after[k])}
+        assert changed == set(after) - {"lstm.bias_ih"}, changed
+        for name in ("K1_action", "K2_advance_fold[static_spawnless]",
+                     "S4_view_unpack"):
+            assert run_launches.get(name, 0) >= TRAIN_BATCHES * ROLLOUT, (
+                name, run_launches)
+        again = make_trainer(dev, n, run, recurrent=True)
+        assert again.restore_checkpoint()
+        for k, v in after.items():
+            assert torch.equal(again.net.state_dict()[k], v), k
+
+        # Learner env-steps/s: TRAIN_BATCHES more batches, timed.
+        state, obs, carry = trainer.env_state, trainer.obs, trainer.carry
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(TRAIN_BATCHES):
+            state, obs, carry, _ = trainer.ppo.train_batch(
+                trainer.train_state, state, obs, carry, trainer.bank,
+                trainer.generator)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / TRAIN_BATCHES
+        last = reports[-1]
+        print(f"recurrent trainer: append-still, {n} envs, view "
+              f"{TRAIN_VIEW}, PPOConfig() defaults: {TRAIN_BATCHES} batches "
+              f"in {seconds:.2f} s with the integrity checks and a "
+              f"checkpoint (restored bit for bit); last batch policy_loss "
+              f"{float(last['policy_loss']):.5g}, value_loss "
+              f"{float(last['value_loss']):.5g}, entropy "
+              f"{float(last['entropy']):.5g}; learner env-steps/s "
+              f"(rollout + GAE + update) {n * ROLLOUT / wall:.0f} "
+              f"({wall * 1e3:.2f} ms a batch of {n * ROLLOUT} env steps) on "
+              f"{smi}; launches {run_launches}")
+
+    policy, view = driver.load_policy(run, dev)
+    assert policy.recurrent and view == TRAIN_VIEW
+    gen = torch.Generator(dev).manual_seed(5)
+    res, launched = counted(lambda: benchmarking.run_benchmark(
+        "append-still", policy, generator=gen, view_shape=view,
+        time_limit=EVAL_TIME_LIMIT, side_effect_samples=EVAL_SAMPLES,
+        device=dev))
+    eval_launches(launched, load_bank("append-still", dev, 100),
+                  launched["K1_action"], EVAL_TIME_LIMIT, EVAL_SAMPLES)
+    assert np.isfinite(res["reward"]).all()
+    assert np.isfinite(res["side_effects"]).all()
+    launches.update(launched)
+    print(f"load_policy of the recurrent run drove run_benchmark with its "
+          f"carry: append-still, time limit {EVAL_TIME_LIMIT}: "
+          f"{benchmarking.summarize(res)}; launches {launched} on {smi}")
+    return launches
+
+
+def trainer_eval(dev, smi, logdir):
+    """Trainer with eval_suite at 64 envs for 2 batches: evaluate runs once
+    (after the last batch), eval.yaml holds the suite's 100 records."""
+    import yaml
+    run = f"{logdir}/eval"
+    trainer = make_trainer(dev, TRAIN_ENVS[0], run,
+                           eval_suite="benchmarks/v1.0/append-still")
+    evaluated = []
+    evaluate = trainer.evaluate
+    trainer.evaluate = lambda: (evaluated.append(trainer.global_step())
+                                or evaluate())
+    t = time.perf_counter()
+    _, launched = counted(lambda: trainer.train(
+        total_steps=ROLLOUT * TRAIN_ENVS[0] + 1))
+    seconds = time.perf_counter() - t
+    assert trainer.train_state.update_step == 2
+    assert evaluated == [trainer.global_step()], evaluated
+    with open(f"{run}/eval.yaml") as fh:
+        records = yaml.safe_load(fh)
+    assert len(records) == 100, len(records)
+    assert all("side_effects_by_type" in r for r in records)
+    assert launched.get("K5_advance_with_field") == (
+        FULL_TIME_LIMIT + 2 * FULL_SAMPLES), launched
+    print(f"trainer with eval_suite append-still: {TRAIN_ENVS[0]} envs, 2 "
+          f"batches, {seconds:.2f} s with the eval; evaluate ran once at "
+          f"step {evaluated[0]}; eval.yaml holds {len(records)} records; "
+          f"integrity checks passed; launches {launched} on {smi}")
+    return launched
+
+
+def evaluation(dev, smi):
+    """Phase 9; returns its launches."""
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on"
+    launches = check_eval_paths(dev, smi)
+    check_sinkhorn(dev, smi)
+    launches.update(full_width_eval(dev, smi))
+    check_lstm_model(dev, smi)
+    with tempfile.TemporaryDirectory() as logdir:
+        launches.update(recurrent_path(dev, smi, logdir))
+        launches.update(trainer_eval(dev, smi, logdir))
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 was left on"
+    return launches
+
+
 # The kernels held to 0 spills, by library: entry-function name fragments
 # and how many instantiations the build log must show.  K1: 5 block
 # widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
@@ -1799,13 +2259,22 @@ def main():
     trained = training(dev, smi)
     print(f"phase 8: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    evaluated = evaluation(dev, smi)
+    print(f"phase 9: {time.perf_counter() - t:.1f} s")
+    for name in EVAL_KERNELS:
+        assert evaluated.get(name, 0) > 0, (name, evaluated)
+    assert any(k.startswith("K3_advance_noreset") for k in evaluated)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = timings[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            # The main path's launches and the training path's.
-            launches=launches[name] + trained.get(name, 0), max_abs_err=err,
+            # The main path's launches, the training path's and the
+            # evaluation path's.
+            launches=launches[name] + trained.get(name, 0)
+            + evaluated.get(name, 0), max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             # R1's plain version is one PyTorch call (a sum).

@@ -73,6 +73,17 @@ POWERS = ALIVE | FREEZING | SPAWNING  # absorbable "powers" bits
 
 COLOR_TUPLE = (COLOR_R, COLOR_G, COLOR_B)
 
+COLOR_NAMES = {
+    "black": 0,
+    "red": COLOR_R,
+    "green": COLOR_G,
+    "blue": COLOR_B,
+    "yellow": COLOR_R | COLOR_G,
+    "magenta": COLOR_R | COLOR_B,
+    "cyan": COLOR_G | COLOR_B,
+    "white": COLORS,
+}
+
 # Goal-color (row) x cell-color (column) -> points per live cell, colors
 # ordered KRGYBMCW by their 3-bit value.  Part of the wire format: levels
 # are only interchangeable if scoring matches.

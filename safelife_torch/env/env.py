@@ -20,7 +20,7 @@ import torch
 from .. import cells as C
 from .. import bits16, resolve_device
 from ..ops import agent as agent_ops
-from ..ops import env_step_kernels, life, obs as obs_ops, scoring
+from ..ops import env_step_kernels, life, obs as obs_ops, rng, scoring
 from .state import EnvState, LevelBank
 
 ACTION_NAMES = (
@@ -222,6 +222,24 @@ class BatchedSafeLifeEnv:
         ``generator`` (the kernels read it there; the host never does)."""
         return torch.randint(0, 2**31 - 1, (1,), generator=generator,
                              device=self.device, dtype=torch.int32)
+
+    def kernel_spawn_fields(self, state: EnvState, bank: LevelBank, seed):
+        """The (board, goals) bool spawn fields that the kernels draw for
+        the step ``seed`` under the bank's rule (:mod:`..ops.rng`'s
+        Philox draws; no draw on a spawnless bank).  Passed to
+        :meth:`step` as ``spawn_board``/``spawn_goals``, they make the
+        plain step advance as the kernel step does."""
+        rule = env_step_kernels.pick_rule(
+            bank.static_goals, bank.spawnless, bank.simple_goals,
+            bank.spawn_simple_goals)
+        draw = env_step_kernels.pick_draw(rule, bank.spawnless)
+        shape = state.board.shape
+        none = torch.zeros(shape, dtype=torch.bool, device=self.device)
+        if draw == "u24":
+            return rng.spawn_field24(seed, state.spawn_prob, shape), none
+        if draw == "pair":
+            return rng.spawn_field_pair(seed, state.spawn_prob, shape)
+        return none, none
 
     def step(self, state: EnvState, bank: LevelBank, action,
              generator: Optional[torch.Generator] = None,

@@ -210,3 +210,9 @@ def load_bank(*paths, device=None):
     """Find, load and stack levels into a bank on ``device`` (``cuda``
     unless the caller passes another)."""
     return build_bank(load_levels(*paths), device=device)
+
+
+def level_names(*paths):
+    """The names of the levels :func:`load_levels` finds, in its order
+    (``<archive>/<level>`` for a combined archive)."""
+    return [lv["name"] for lv in load_levels(*paths)]

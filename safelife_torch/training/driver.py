@@ -1,11 +1,15 @@
-"""Training driver: env factory, train loop, checkpointing, logging (port
-of ``safelife_tpu.training.driver``, feed-forward policy).
+"""Training driver: env factory, train loop, checkpointing, frozen-suite
+evaluation, logging (port of ``safelife_tpu.training.driver``).
 
 Capability parity with ``training/safelife_ppo.py`` (SafeLife-specific
 hyperparameters, wrapped env factory, checkpoint/restore incl. global
 counters) and the outer loop of ``training/ppo.py:550-559``: the Python
-loop calls :meth:`PPO.train_batch`, flushes episode logs at report time,
-and checkpoints.
+loop calls :meth:`PPO.train_batch` (or :meth:`RecurrentPPO.train_batch`
+with the LSTM carry), flushes episode logs at report time, checkpoints,
+and evaluates the policy on a frozen suite (:meth:`Trainer.evaluate`).
+Checkpoints and evaluations fall on grids of the global step: multiples
+of ``save_every`` and of ``eval_every``.  The last batch is checkpointed
+and evaluated unless that step was already.
 
 Checkpoints are ``torch.save`` files under ``<logdir>/checkpoints/``: the
 net's and the optimizer's state, ``spe``, the generator's state and the
@@ -14,9 +18,7 @@ counters are resynced (the reference does the same for its
 ``global_counter``, ``safelife_ppo.py:88-106``).
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the recurrent policy (ROADMAP A2b), frozen-suite evaluation
-(``eval_suite``, A3) and episode videos (``record_videos`` with a
-``logdir``, A3/A4).
+episode videos (``record_videos`` with a ``logdir``, ROADMAP A4).
 """
 
 import dataclasses
@@ -39,8 +41,9 @@ from ..metrics.logging import (
     EpisodeLogger, log_training_metrics, make_summary_writer)
 from ..utils.integrity import (check_bank_reset_integrity,
                                check_device_integrity)
-from .model import SafeLifeCNN
-from .ppo import PPO, PPOConfig, init_train_state, sample_actions
+from .model import SafeLifeCNN, SafeLifeLSTMNet
+from .ppo import (PPO, PPOConfig, RecurrentPPO, init_train_state,
+                  sample_actions)
 
 logger = logging.getLogger(__name__)
 
@@ -59,9 +62,11 @@ class TrainerConfig:
     seed: int = 0
     logdir: Optional[str] = None
     max_checkpoints: int = 3
-    record_videos: bool = True    # episode gif at each checkpoint (A3/A4)
-    # Periodic frozen-suite evaluation (ROADMAP A3): a suite name / path /
-    # LevelBank; None disables.
+    record_videos: bool = True    # episode gif at each checkpoint (A4)
+    # Periodic frozen-suite evaluation: a suite name / path / LevelBank;
+    # None disables.  Results go to eval.yaml and eval/* scalars, with the
+    # full EMD side-effect scores.  eval_every sets the cadence in env
+    # steps (0 = save_every); the last batch is evaluated too.
     eval_suite: Any = None
     eval_every: int = 0
     eval_side_effect_samples: int = 250
@@ -69,7 +74,10 @@ class TrainerConfig:
     # steps from the current bank factory (0 = fixed bank).  Generation
     # runs on a background thread; the swap happens between batches.
     fresh_levels_every: int = 0
-    # Recurrent policy (ROADMAP A2b).
+    # Recurrent policy: CNN trunk + LSTM core trained with RecurrentPPO
+    # (whole-env minibatches), the reference's optional LSTM path
+    # (safelife_ppo.py:168-189).  The carry is threaded through rollouts
+    # and reset at episode ends and bank switches.
     recurrent: bool = False
 
 
@@ -88,18 +96,10 @@ def make_training_env(cfg: TrainerConfig, device=None):
 
 
 def _unported(cfg: TrainerConfig):
-    if cfg.recurrent:
-        raise NotImplementedError(
-            "recurrent=True: the LSTM policy is ROADMAP item A2b, not "
-            "ported yet")
-    if cfg.eval_suite is not None:
-        raise NotImplementedError(
-            "eval_suite: frozen-suite evaluation is ROADMAP item A3, not "
-            "ported yet")
     if cfg.record_videos and cfg.logdir:
         raise NotImplementedError(
             "record_videos with a logdir: episode recording is ROADMAP "
-            "items A3/A4, not ported yet; pass record_videos=False")
+            "item A4, not ported yet; pass record_videos=False")
 
 
 def _next_on_grid(step, every):
@@ -136,7 +136,8 @@ class Trainer:
         self.level_names = level_names
         self.env = env if env is not None else make_training_env(
             trainer_cfg, self.device)
-        self.ppo = PPO(ppo_cfg, self.env)
+        self.ppo = (RecurrentPPO if trainer_cfg.recurrent else PPO)(
+            ppo_cfg, self.env)
 
         # Weights from a CPU generator (the same on every device), the
         # rollouts' and the resets' draws from one on the device.
@@ -146,11 +147,16 @@ class Trainer:
         self.env_state = self.env.reset_all(
             self.bank, trainer_cfg.num_envs, self.generator)
         self.obs = self.env.observe(self.env_state)
-        self.net = (net or SafeLifeCNN(
+        net_class = SafeLifeLSTMNet if trainer_cfg.recurrent else SafeLifeCNN
+        self.net = (net or net_class(
             view_shape=trainer_cfg.view_shape, in_channels=self.obs.shape[-1],
             num_actions=9, n_gamma=ppo_cfg.n_gamma,
             generator=init)).to(self.device)
         self.train_state = init_train_state(ppo_cfg, self.net)
+        # The LSTM carry of the training envs (None for the CNN).
+        self.carry = (self.net.initial_carry(trainer_cfg.num_envs)
+                      if trainer_cfg.recurrent else None)
+        self.dead_start_evals = 0  # consecutive evals flagged dead
 
         if trainer_cfg.logdir:
             self._write_run_config()
@@ -255,7 +261,10 @@ class Trainer:
         total = total_steps or self.cfg.total_steps
         next_report = 0
         next_save = _next_on_grid(self.global_step(), self.cfg.save_every)
-        saved = None  # the step of the last checkpoint this call wrote
+        eval_every = self.cfg.eval_every or self.cfg.save_every
+        next_eval = _next_on_grid(self.global_step(), eval_every)
+        saved = None      # the step of the last checkpoint this call wrote
+        evaluated = None  # the step of the last evaluation this call ran
         t0 = time.time()
         last_steps, last_t = self.global_step(), t0
 
@@ -276,9 +285,15 @@ class Trainer:
         pending_eps = []  # device-side episode stats, flushed at report time
         while self.global_step() < total:
             self._maybe_switch_bank()
-            self.env_state, self.obs, metrics = self.ppo.train_batch(
-                self.train_state, self.env_state, self.obs, self.bank,
-                self.generator)
+            if self.carry is not None:
+                (self.env_state, self.obs, self.carry,
+                 metrics) = self.ppo.train_batch(
+                    self.train_state, self.env_state, self.obs, self.carry,
+                    self.bank, self.generator)
+            else:
+                self.env_state, self.obs, metrics = self.ppo.train_batch(
+                    self.train_state, self.env_state, self.obs, self.bank,
+                    self.generator)
             pending_eps.append(metrics.pop("episodes"))
             step = self.global_step()
 
@@ -310,9 +325,15 @@ class Trainer:
                 self.save_checkpoint()
                 saved = step
                 next_save = _next_on_grid(step, self.cfg.save_every)
+            if step >= next_eval:
+                self.evaluate()
+                evaluated = step
+                next_eval = _next_on_grid(step, eval_every)
 
         if self.global_step() != saved:
             self.save_checkpoint()
+        if self.global_step() != evaluated:
+            self.evaluate()  # final frozen-suite numbers
         check_device_integrity(self.device)  # a corrupted run must not
         if marker and os.path.exists(marker):  # finish quietly
             os.remove(marker)  # clean exit: no restart needed
@@ -335,6 +356,8 @@ class Trainer:
             self.env_state = self.env.reset_all(
                 self.bank, self.cfg.num_envs, self.generator)
             self.obs = self.env.observe(self.env_state)
+            if self.carry is not None:  # fresh episodes: fresh LSTM state
+                self.carry = self.net.initial_carry(self.cfg.num_envs)
             # reset_all zeroes the global counters; fold them into offset
             self._steps_offset = offset
 
@@ -370,17 +393,82 @@ class Trainer:
             thread.start()
             self._refresher = (thread, out)
 
+    def evaluate(self):
+        """Frozen-suite evaluation into the training stream: mean
+        performance and full EMD side-effect scores on a held-out suite
+        (reference RecordingSafeLifeWrapper logs per-episode side effects,
+        env_wrappers.py:195-231; here the exact scoring runs on the eval
+        suite at its cadence while every training episode logs its
+        in-kernel side-effect cell count).  Returns run_benchmark's
+        results, or None without an ``eval_suite``."""
+        if self.cfg.eval_suite is None:
+            return None
+        from ..benchmarking import run_benchmark, summarize
+        # Log no numbers a sick device fabricated.
+        check_device_integrity(self.device)
+        step = self.global_step()
+        results = run_benchmark(
+            self.cfg.eval_suite, self.policy_fn(),
+            logfile=os.path.join(self.cfg.logdir, "eval.yaml")
+            if self.cfg.logdir else None,
+            generator=torch.Generator(self.device).manual_seed(
+                self.cfg.seed + step),
+            view_shape=self.cfg.view_shape,
+            time_limit=self.cfg.time_limit,
+            side_effect_samples=self.cfg.eval_side_effect_samples,
+            device=self.device)
+        perf = float(np.mean(results["performance"]))
+        # Dead-start watchdog: a policy trained for a million steps that
+        # scores exactly zero on a goal-bearing suite has never completed
+        # a goal cell (one append-dynamic seed of the JAX package sat at
+        # 0.000 for 2.5M steps before recovering).  Flag it loudly.
+        # Suites without goals (possible == 0 by construction) are exempt.
+        has_goals = bool(np.any(np.asarray(results["possible"]) > 0))
+        dead = has_goals and perf == 0.0 and step >= 1_000_000
+        if dead:
+            self.dead_start_evals += 1
+            logger.warning(
+                "DEAD START: eval mean_perf is exactly 0.000 at step %d "
+                "(%d consecutive flagged evals): the policy has never "
+                "completed a goal cell; check entropy collapse / reward "
+                "sparsity / the training bank", step, self.dead_start_evals)
+        else:
+            self.dead_start_evals = 0
+        if self.writer:
+            self.writer.add_scalar("eval/dead_start", float(dead), step)
+            self.writer.add_scalar("eval/performance", perf, step)
+            self.writer.add_scalar(
+                "eval/reward", float(np.mean(results["reward"])), step)
+            self.writer.add_scalar(
+                "eval/length", float(np.mean(results["length"])), step)
+            if "side_effects" in results:
+                self.writer.add_scalar(
+                    "eval/side_effects",
+                    float(np.mean(results["side_effects"])), step)
+        logger.info("eval @ %d: %s", step, summarize(results))
+        return results
+
     def policy_fn(self):
-        """Sampling policy ``policy(obs, generator=None) -> actions`` of the
-        trainer's net (its current weights at each call)."""
+        """Sampling policy of the trainer's net (its current weights at each
+        call): ``policy(obs, generator=None) -> actions``, or for a
+        recurrent net ``policy(obs, carry, generator=None) -> (actions,
+        carry)`` with ``.recurrent`` and ``.init_carry``."""
         return _sampling_policy(self.net)
 
 
 def _sampling_policy(net):
-    @torch.no_grad()
-    def policy(obs, generator=None):
-        logits, _ = net(obs)
-        return sample_actions(logits, generator)
+    if isinstance(net, SafeLifeLSTMNet):
+        @torch.no_grad()
+        def policy(obs, carry, generator=None):
+            carry, (logits, _) = net(obs, carry)
+            return sample_actions(logits, generator), carry
+        policy.recurrent = True
+        policy.init_carry = net.initial_carry
+    else:
+        @torch.no_grad()
+        def policy(obs, generator=None):
+            logits, _ = net(obs)
+            return sample_actions(logits, generator)
     policy.net = net
     return policy
 
@@ -396,23 +484,24 @@ def load_policy(logdir, device=None):
     """Rebuild a sampling policy from a training logdir's newest checkpoint
     on ``device`` (``cuda`` unless the caller passes another).
 
-    Returns (policy(obs, generator=None) -> actions, view_shape).
+    Returns (policy, view_shape): ``policy(obs, generator=None) ->
+    actions``, or for a recurrent run ``policy(obs, carry, generator=None)
+    -> (actions, carry)`` with ``.recurrent`` and ``.init_carry``.
     """
     device = resolve_device(device)
     with open(os.path.join(logdir, "config.json")) as fh:
         run_cfg = json.load(fh)
-    if run_cfg.get("recurrent", False):
-        raise NotImplementedError(
-            "recurrent policies are ROADMAP item A2b, not ported yet")
     found = _checkpoints(os.path.join(logdir, "checkpoints"))
     if not found:
         raise FileNotFoundError(f"no checkpoints under {logdir}")
     payload = torch.load(found[-1][1], map_location=device, weights_only=True)
     view_shape = tuple(run_cfg["view_shape"])
-    net = SafeLifeCNN(view_shape=view_shape,
-                      in_channels=run_cfg.get("in_channels", 15),
-                      num_actions=run_cfg.get("num_actions", 9),
-                      n_gamma=run_cfg.get("n_gamma", 1)).to(device)
+    net_class = (SafeLifeLSTMNet if run_cfg.get("recurrent", False)
+                 else SafeLifeCNN)
+    net = net_class(view_shape=view_shape,
+                    in_channels=run_cfg.get("in_channels", 15),
+                    num_actions=run_cfg.get("num_actions", 9),
+                    n_gamma=run_cfg.get("n_gamma", 1)).to(device)
     net.load_state_dict(payload["net"])
     net.eval()
     return _sampling_policy(net), view_shape

@@ -1,11 +1,17 @@
 """PPO on the device: batched rollout, multi-discount GAE, clipped update
-(port of ``safelife_tpu.training.ppo``, feed-forward policy).
+(port of ``safelife_tpu.training.ppo``, feed-forward and recurrent).
 
 The rollout steps the batched (wrapped) env ``steps_per_env`` times with
 actions drawn from the policy, GAE is a reverse loop over time, and the
 update runs ``epochs_per_batch`` epochs of ``num_minibatches`` Adam steps
 on minibatches of whole environments.  Nothing reads a device value back
 to the host inside :meth:`PPO.train_batch`.
+
+:class:`RecurrentPPO` trains a recurrent policy (``SafeLifeLSTMNet``): the
+rollout threads the LSTM carry and zeroes it where an episode ends, and
+the loss replays each minibatch's sequences from the carry the rollout
+started with.  Minibatches are whole environments, so sequences stay
+intact (the reference's scheme, ppo.py:510-533).
 
 Reference-faithful loss details (all optional, defaults mirror the
 reference; see the JAX module for their sources):
@@ -145,10 +151,11 @@ def make_optimizer(cfg: PPOConfig, params):
 
 
 def init_train_state(cfg: PPOConfig, net):
-    """Train state of ``net`` (already on its device): ``spe`` starts at 1."""
+    """Train state of ``net`` (already on its device): ``spe`` starts at 1.
+    The optimizer takes the parameters that require gradients."""
     device = next(net.parameters()).device
     spe = torch.nn.Parameter(torch.ones((), device=device))
-    params = [*net.parameters(), spe]
+    params = [p for p in net.parameters() if p.requires_grad] + [spe]
     return TrainState(net=net, spe=spe, optimizer=make_optimizer(cfg, params))
 
 
@@ -172,29 +179,38 @@ def _core_env(env):
     return env
 
 
-@torch.no_grad()
-def rollout(cfg: PPOConfig, net, env, bank, env_state, obs, generator=None,
-            actions=None, fresh=None):
-    """Collect ``cfg.steps_per_env`` lockstep steps from the batched env.
+def mask_carry(carry, done):
+    """The recurrent carry with the rows of finished episodes zeroed."""
+    keep = (~done).to(torch.float32)[:, None]
+    return tuple(x * keep for x in carry)
 
-    ``env`` is a :class:`BatchedSafeLifeEnv` or a wrapper of one.  With
-    auto-reset, the rollout's reset levels are gathered once up front
-    (``sample_fresh_levels``) unless ``fresh`` gives them; ``actions``
-    (T, B) replaces the policy's draws (to replay a recorded rollout).
-    Returns (env_state, obs, Trajectory, episode stats of (T, B)).
-    """
+
+@torch.no_grad()
+def _rollout(cfg, net, env, bank, env_state, obs, carry, generator, actions,
+             fresh):
+    """The loop of :func:`rollout` and :func:`rollout_recurrent`; ``carry``
+    None for a feed-forward net.  Returns (env_state, obs, carry, traj,
+    episode stats)."""
     if fresh is None and env.config.auto_reset:
         fresh = _core_env(env).sample_fresh_levels(
             bank, unwrap(env_state).batch_size, generator)
+
+    def forward(obs, carry):
+        if carry is None:
+            return None, net(obs)
+        return net(obs, carry)
+
     steps = []
     for t in range(cfg.steps_per_env):
-        logits, value = net(obs)
+        carry, (logits, value) = forward(obs, carry)
         action = (sample_actions(logits, generator) if actions is None
                   else actions[t].to(logits.device, torch.int64))
         probs = torch.softmax(logits, dim=-1)
         old_pi = probs.gather(1, action[:, None])[:, 0]
         env_state, ts = env.step(env_state, bank, action, generator,
                                  fresh_levels=fresh)
+        if carry is not None:
+            carry = mask_carry(carry, ts.done)
         steps.append(dict(
             obs=obs, action=action, old_pi=old_pi, reward=ts.reward,
             done=ts.done, value=value, times_up=ts.times_up,
@@ -207,14 +223,42 @@ def rollout(cfg: PPOConfig, net, env, bank, env_state, obs, generator=None,
             # records (env_wrappers.py:195-231).
             side_effects=ts.side_effect_count))
         obs = ts.obs
-    _, final_value = net(obs)
+    _, (_, final_value) = forward(obs, carry)
     seq = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
     traj = Trajectory(
         obs=seq.pop("obs"), action=seq.pop("action"),
         old_pi=seq.pop("old_pi"), reward=seq.pop("reward"),
         done=seq["done"],
         value=torch.cat([seq.pop("value"), final_value[None]]))
+    return env_state, obs, carry, traj, seq
+
+
+def rollout(cfg: PPOConfig, net, env, bank, env_state, obs, generator=None,
+            actions=None, fresh=None):
+    """Collect ``cfg.steps_per_env`` lockstep steps from the batched env.
+
+    ``env`` is a :class:`BatchedSafeLifeEnv` or a wrapper of one.  With
+    auto-reset, the rollout's reset levels are gathered once up front
+    (``sample_fresh_levels``) unless ``fresh`` gives them; ``actions``
+    (T, B) replaces the policy's draws (to replay a recorded rollout).
+    Returns (env_state, obs, Trajectory, episode stats of (T, B)).
+    """
+    env_state, obs, _, traj, seq = _rollout(
+        cfg, net, env, bank, env_state, obs, None, generator, actions, fresh)
     return env_state, obs, traj, seq
+
+
+def rollout_recurrent(cfg: PPOConfig, net, env, bank, env_state, obs, carry,
+                      generator=None, actions=None, fresh=None):
+    """:func:`rollout` for a recurrent ``net`` (``net(obs, carry) ->
+    (carry, (logits, values))``), threading ``carry`` and zeroing it where
+    an episode ends.  Returns (env_state, obs, carry, Trajectory, carry0,
+    episode stats), carry0 the carry the rollout started from (the loss
+    replays the sequences from it)."""
+    env_state, obs, carry_out, traj, seq = _rollout(
+        cfg, net, env, bank, env_state, obs, carry, generator, actions,
+        fresh)
+    return env_state, obs, carry_out, traj, carry, seq
 
 
 # ---------------------------------------------------------------------------
@@ -255,11 +299,11 @@ def _rectifier(name):
     raise ValueError(f"unknown rectifier '{name}'")
 
 
-def ppo_loss(cfg: PPOConfig, net, spe, obs, action, old_pi, old_value,
-             returns, advantages):
-    """Loss over one minibatch (any leading batch layout; all reductions
-    are full means).  Returns (total, metrics of detached tensors)."""
-    logits, value = net(obs)
+def _loss_terms(cfg: PPOConfig, logits, value, spe, action, old_pi,
+                old_value, returns, advantages, rescaling):
+    """The loss of the policy's ``logits`` and ``value`` on a minibatch
+    (any leading batch layout; all reductions are full means), the value
+    loss rescaled as ``rescaling`` says."""
     probs = torch.softmax(logits, dim=-1)
     a_pi = probs.gather(-1, action[..., None].to(torch.int64))[..., 0]
     dev = logits.device
@@ -290,15 +334,14 @@ def ppo_loss(cfg: PPOConfig, net, spe, obs, action, old_pi, old_value,
                                      cfg.eps_clip)
     value_loss = torch.maximum(
         torch.square(value - returns), torch.square(v_clip - returns))
-    if cfg.value_grad_rescaling == "per_state":
+    if rescaling == "per_state":
         value_loss = value_loss * pseudo_entropy[..., None]
-    elif cfg.value_grad_rescaling == "per_batch":
+    elif rescaling == "per_batch":
         value_loss = value_loss * avg_pe
-    elif cfg.value_grad_rescaling == "smooth":
+    elif rescaling == "smooth":
         value_loss = value_loss * spe.detach()
-    elif cfg.value_grad_rescaling:
-        raise ValueError(
-            f"unknown value_grad_rescaling '{cfg.value_grad_rescaling}'")
+    elif rescaling:
+        raise ValueError(f"unknown value_grad_rescaling '{rescaling}'")
     value_loss = 0.5 * torch.mean(value_loss * vw)
 
     total = policy_loss + cfg.vf_coef * value_loss + entropy_loss
@@ -307,6 +350,43 @@ def ppo_loss(cfg: PPOConfig, net, spe, obs, action, old_pi, old_value,
         entropy=torch.mean(entropy), pseudo_entropy=avg_pe,
         smoothed_pseudo_entropy=spe)
     return total, {k: v.detach() for k, v in metrics.items()}
+
+
+def ppo_loss(cfg: PPOConfig, net, spe, obs, action, old_pi, old_value,
+             returns, advantages):
+    """Loss over one minibatch (any leading batch layout; all reductions
+    are full means).  Returns (total, metrics of detached tensors)."""
+    logits, value = net(obs)
+    return _loss_terms(cfg, logits, value, spe, action, old_pi, old_value,
+                       returns, advantages, cfg.value_grad_rescaling)
+
+
+def recurrent_forward(net, obs_seq, done_seq, carry0):
+    """Replay a (T, M, ...) observation sequence through the recurrent
+    ``net`` from ``carry0``, zeroing the carry at episode ends.  Returns
+    (logits (T, M, A), values (T, M, n_gamma)).  The trunk does not read
+    the carry, so it runs once over all T * M observations; only the cell
+    steps through time."""
+    steps, batch = done_seq.shape
+    features = net.features(obs_seq).reshape(steps, batch, -1)
+    carry, hidden = carry0, []
+    for x, done in zip(features, done_seq):
+        carry, h = net.cell(x, carry)
+        carry = mask_carry(carry, done)
+        hidden.append(h)
+    return net.heads(torch.stack(hidden))
+
+
+def ppo_loss_recurrent(cfg: PPOConfig, net, spe, obs, done, carry0, action,
+                       old_pi, old_value, returns, advantages):
+    """:func:`ppo_loss` of a recurrent ``net``: the (T, M) sequences of
+    whole environments are replayed from ``carry0`` ((M, 512) pairs).  As
+    the reference's recurrent loss (safelife_tpu/training/ppo.py:512-513),
+    it applies only the 'smooth' value rescaling and ignores the others."""
+    logits, value = recurrent_forward(net, obs, done, carry0)
+    rescaling = "smooth" if cfg.value_grad_rescaling == "smooth" else False
+    return _loss_terms(cfg, logits, value, spe, action, old_pi, old_value,
+                       returns, advantages, rescaling)
 
 
 # ---------------------------------------------------------------------------
@@ -332,31 +412,47 @@ class PPO:
         self.cfg = cfg
         self.env = env
 
-    def update(self, train_state, traj, returns, advantages, generator=None):
+    def _epochs(self, train_state, batch, loss_of, generator):
         """``epochs_per_batch`` epochs of ``num_minibatches`` clipped Adam
-        steps; each minibatch is T x (B / num_minibatches) whole
-        environments of a fresh permutation.  Returns the last
-        minibatch's metrics."""
+        steps; each minibatch is the (B / num_minibatches) environments
+        ``idx`` of a fresh permutation, and ``loss_of(idx)`` its (loss,
+        metrics).  Returns the last minibatch's metrics."""
         cfg = self.cfg
-        batch = traj.action.shape[1]
         if batch % cfg.num_minibatches:
             raise ValueError(f"{batch} environments do not divide into "
                              f"{cfg.num_minibatches} minibatches")
         mb = batch // cfg.num_minibatches
-        data = (traj.obs, traj.action, traj.old_pi, traj.value[:-1],
-                returns, advantages)
+        device = train_state.spe.device
         for _ in range(cfg.epochs_per_batch):
-            perm = torch.randperm(batch, generator=generator,
-                                  device=traj.action.device)
+            perm = torch.randperm(batch, generator=generator, device=device)
             for k in range(cfg.num_minibatches):
-                idx = perm[k * mb:(k + 1) * mb]
-                loss, metrics = ppo_loss(
-                    cfg, train_state.net, train_state.spe,
-                    *(x[:, idx] for x in data))
+                loss, metrics = loss_of(perm[k * mb:(k + 1) * mb])
                 for p in train_state.optimizer.params:
                     p.grad = None
                 loss.backward()
                 train_state.optimizer.step()
+        return metrics
+
+    def update(self, train_state, traj, returns, advantages, generator=None):
+        """The epochs of Adam steps on T x (B / num_minibatches) whole
+        environments a minibatch; returns the last minibatch's metrics."""
+        data = (traj.obs, traj.action, traj.old_pi, traj.value[:-1],
+                returns, advantages)
+        return self._epochs(
+            train_state, traj.action.shape[1],
+            lambda idx: ppo_loss(self.cfg, train_state.net, train_state.spe,
+                                 *(x[:, idx] for x in data)),
+            generator)
+
+    def _finish(self, train_state, traj, returns, advantages, metrics,
+                epstats):
+        metrics.update(
+            mean_reward=traj.reward.mean(),
+            mean_return=returns.mean(dim=(0, 1)),
+            mean_advantage=advantages.mean(dim=(0, 1)),
+            mean_value=traj.value.mean(dim=(0, 1)),
+            episodes=epstats)
+        train_state.update_step += 1
         return metrics
 
     def train_batch(self, train_state, env_state, obs, bank, generator=None):
@@ -370,11 +466,46 @@ class PPO:
                                           traj.value)
         metrics = self.update(train_state, traj, returns, advantages,
                               generator)
-        metrics.update(
-            mean_reward=traj.reward.mean(),
-            mean_return=returns.mean(dim=(0, 1)),
-            mean_advantage=advantages.mean(dim=(0, 1)),
-            mean_value=traj.value.mean(dim=(0, 1)),
-            episodes=epstats)
-        train_state.update_step += 1
-        return env_state, obs, metrics
+        return env_state, obs, self._finish(
+            train_state, traj, returns, advantages, metrics, epstats)
+
+
+class RecurrentPPO(PPO):
+    """PPO over a recurrent policy (``SafeLifeLSTMNet``)::
+
+        ppo = RecurrentPPO(cfg, env)
+        carry = net.initial_carry(B)
+        env_state, obs, carry, metrics = ppo.train_batch(
+            ts, env_state, obs, carry, bank, generator)
+    """
+
+    def update(self, train_state, traj, returns, advantages, carry0,
+               generator=None):
+        """The epochs of Adam steps, each minibatch's sequences replayed
+        from their rows of ``carry0``; returns the last minibatch's
+        metrics."""
+        data = (traj.obs, traj.done)
+        rest = (traj.action, traj.old_pi, traj.value[:-1], returns,
+                advantages)
+        return self._epochs(
+            train_state, traj.action.shape[1],
+            lambda idx: ppo_loss_recurrent(
+                self.cfg, train_state.net, train_state.spe,
+                *(x[:, idx] for x in data), tuple(c[idx] for c in carry0),
+                *(x[:, idx] for x in rest)),
+            generator)
+
+    def train_batch(self, train_state, env_state, obs, carry, bank,
+                    generator=None):
+        """Rollout (threading ``carry``), GAE and update; returns
+        (env_state, obs, carry, metrics)."""
+        cfg = self.cfg
+        env_state, obs, carry, traj, carry0, epstats = rollout_recurrent(
+            cfg, train_state.net, self.env, bank, env_state, obs, carry,
+            generator)
+        returns, advantages = compute_gae(cfg, traj.reward, traj.done,
+                                          traj.value)
+        metrics = self.update(train_state, traj, returns, advantages, carry0,
+                              generator)
+        return env_state, obs, carry, self._finish(
+            train_state, traj, returns, advantages, metrics, epstats)

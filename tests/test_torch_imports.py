@@ -42,7 +42,7 @@ def test_port_and_chip_smoke_import_without_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 16, proc.stdout
+    assert int(proc.stdout.strip()) >= 38, proc.stdout
 
 
 def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch, tmp_path):
