@@ -92,9 +92,27 @@ Phases, each an assertion that ends the run on failure:
    environments (checkpoint round trip, learner env-steps/s) and
    ``load_policy`` of its run driving ``run_benchmark`` with its carry;
    and a ``Trainer`` with ``eval_suite`` evaluating once;
-10. one JSON line listing the kernels (the launches of phases 5, 8 and
-   9), and last the result line; before it the run fails if the build
-   log shows a K1-K8, S3-S5, R1 or view kernel instantiation that spills.
+10. the host game layer, episode videos and the command line: at B = 1,
+   2 and 3 (the recorder's width) the training stack through K1, K2 and
+   UNPACK against the same stack on the plain step drawing the kernels'
+   spawns, on append-still, append-dynamic and prune-spawn, 20 steps
+   with resets, bit for bit, and K1 + K2 and K1 + K3 against their plain
+   versions along rollouts at those widths; ``record_episode`` through
+   the training stack at B = 1 on the kernels against the plain step (a
+   ``SafeLifeCNN`` of seed 0, view 33x33, time limit 1000, append-still
+   and prune-spawn), bit for bit, with the seconds of its step loop, of
+   ``render_board`` over its frames and of the GIF encoder, and the file
+   sizes; the host ``SafeLifeGame`` against the card's env at B = 1 on 8
+   append-still levels, 60 seeded steps each; and ``python -m
+   safelife_torch`` in process: ``train`` (3 batches at 64 environments,
+   ``TrainerConfig``'s ``record_videos``) writing a checkpoint and the
+   episode's npz and GIF, ``bench --side-effects 16`` of that run,
+   ``render`` of the episode, ``selftest`` and ``print``, with their
+   launches of K1, K2, K3, UNPACK, K4, K5 and T1;
+11. one JSON line listing the kernels (the launches of phases 5, 8, 9
+   and 10), and last the result line; before it the run fails if the
+   build log shows a K1-K8, S3-S5, R1 or view kernel instantiation that
+   spills.
 
 Exits nonzero, printing no result, when no CUDA device is present.
 """
@@ -103,6 +121,8 @@ import collections
 import dataclasses
 import functools
 import json
+import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2131,6 +2151,337 @@ def evaluation(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the host game layer, episode videos and the command line.
+# ---------------------------------------------------------------------------
+
+# The smallest batches, which the recorder (B = 1) and the host game's
+# counterpart run, on a static, a dynamic-goal and a spawner suite.
+SMALL_BATCHES = (1, 2, 3)
+SMALL_SUITES = ("append-still", "append-dynamic", "prune-spawn")
+RECORD_SUITES = ("append-still", "prune-spawn")
+GAME_LEVELS = 8
+GAME_STEPS = 60
+CLI_ENVS = 64
+CLI_STEPS = 3 * CLI_ENVS * ROLLOUT  # 3 batches of PPOConfig's 20 steps
+CLI_KERNELS = ("K1_action", "S4_view_unpack", "K4_advance_spawnless",
+               "K5_advance_with_field", "T1_philox_words",
+               "K2_advance_fold[static_spawnless]",
+               "K3_advance_noreset[static_spawnless]")
+
+
+class KernelDraws(W.Wrapper):
+    """The plain step of a wrapped env drawing what the kernel step draws
+    from the same generator: the auto-reset's levels, then the step's
+    seed, whose Philox spawn fields it is given (benchmarking's plain
+    path does the same)."""
+
+    def step(self, state, bank, action, generator=None, **kw):
+        core = core_env(self.env)
+        b = action.shape[0]
+        fresh = core.fresh_levels(bank, torch.randint(
+            0, bank.num_levels, (b,), generator=generator,
+            device=core.device, dtype=torch.int32))
+        board, goals = core.kernel_spawn_fields(
+            W.unwrap(state), bank, core.step_seed(generator))
+        return self.env.step(state, bank, action, generator,
+                             spawn_board=board, spawn_goals=goals,
+                             fresh_levels=fresh, **kw)
+
+
+def plain_stack(cfg, dev):
+    """make_training_env on the plain step (the core config's
+    use_kernels=False) drawing the kernels' spawns."""
+    env = driver.make_training_env(cfg, dev)
+    core_env(env).config = dataclasses.replace(core_env(env).config,
+                                               use_kernels=False)
+    return KernelDraws(env)
+
+
+def check_small_batches(dev, steps=ROLLOUT):
+    """B = 1, 2, 3: the training stack at the 33x33 view through K1, K2 and
+    UNPACK against the same stack on the plain step drawing the same
+    spawns, bit for bit, 20 steps with resets; then K1 + K2 and K1 + K3
+    against their plain versions along rollouts at the same widths."""
+    cfg = driver.TrainerConfig(view_shape=TRAIN_VIEW, time_limit=8,
+                               impact_penalty=TRAIN_PENALTY,
+                               min_performance=TRAIN_MIN_PERF)
+    launches = collections.Counter()
+    for suite in SMALL_SUITES:
+        t0 = time.perf_counter()
+        bank = load_bank(suite, dev)
+        for b in SMALL_BATCHES:
+            kern = driver.make_training_env(cfg, dev)
+            plain = plain_stack(cfg, dev)
+            assert core_env(kern).uses_kernels()
+            actions = torch.randint(0, 9, (steps, b), device=dev,
+                                    generator=torch.Generator(dev)
+                                    .manual_seed(7))
+            gens = [torch.Generator(dev).manual_seed(9) for _ in range(2)]
+            states = [env.reset_all(bank, b, g) for env, g in
+                      zip((kern, plain), gens)]
+            resets = 0
+            for t in range(steps):
+                out = []
+                for i, env in enumerate((kern, plain)):
+                    (states[i], ts), launched = counted(
+                        lambda: env.step(states[i], bank, actions[t],
+                                         gens[i]))
+                    launches.update(launched)
+                    out.append(step_fields(states[i], ts))
+                got, want = out
+                assert got.keys() == want.keys()
+                for name in want:
+                    assert_bit_equal([got[name]], [want[name]],
+                                     f"training stack {suite} B={b} step "
+                                     f"{t}: {name}")
+                resets += int(got["ts.done"].sum())
+            assert resets > 0, (suite, b)
+            gen = torch.Generator(dev)
+            for env_cfg in (dict(time_limit=6, view_shape=TRAIN_VIEW),
+                            dict(time_limit=6, auto_reset=False)):
+                env = BatchedSafeLifeEnv(EnvConfig(**env_cfg), device=dev)
+                rollout_check(env, bank, b, gen, f"{suite} B={b} {env_cfg}")
+        print(f"B = {SMALL_BATCHES}: the training stack at view {TRAIN_VIEW} "
+              f"on {suite} ({rule_of(bank)} rule), {steps} steps with "
+              f"resets: kernels == plain step bit for bit; K1 + K2 (view "
+              f"{TRAIN_VIEW}) and K1 + K3 == plain along 10-step rollouts "
+              f"({time.perf_counter() - t0:.1f} s)")
+    rule = rule_of(load_bank("prune-spawn", dev))
+    assert launches[f"K2_advance_fold[{rule}]"] == (
+        steps * len(SMALL_BATCHES)), launches
+
+
+def gif_info(path):
+    """(frames, width, height, the delays in hundredths of a second) of a
+    GIF89a file, from its blocks."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    assert data[:6] == b"GIF89a", data[:6]
+    width, height, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    frames, delays = 0, []
+
+    def skip_sub_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # extension
+            if data[pos + 1] == 0xF9:
+                delays.append(struct.unpack("<H", data[pos + 4:pos + 6])[0])
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:  # image descriptor
+            frames += 1
+            local = data[pos + 9]
+            pos += 10 + (3 << ((local & 7) + 1) if local & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)  # after the LZW code size
+        else:
+            raise AssertionError(f"unexpected GIF block {data[pos]:#x}")
+    return frames, width, height, delays
+
+
+def check_recording(dev, smi, logdir):
+    """record_episode through the training stack at B = 1 on the kernels
+    against the plain step (the same generator, a SafeLifeCNN of seed 0,
+    the 33x33 view, time limit 1000), bit for bit; the seconds of the step
+    loop, of render_board over the frames and of the GIF encoder, and the
+    file sizes."""
+    from safelife_torch.metrics import recording
+    from safelife_torch.render import graphics
+    cfg = driver.TrainerConfig(view_shape=TRAIN_VIEW)
+    launches = collections.Counter()
+    for suite in RECORD_SUITES:
+        bank = load_bank(suite, dev)
+        rule = rule_of(bank)
+        net = model.SafeLifeCNN(
+            view_shape=TRAIN_VIEW,
+            generator=torch.Generator().manual_seed(0)).to(dev)
+        policy = driver._sampling_policy(net)
+        trajs = []
+        for env in (driver.make_training_env(cfg, dev),
+                    plain_stack(cfg, dev)):
+            gen = torch.Generator(dev).manual_seed(5)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            traj, launched = counted(lambda: recording.record_episode(
+                env, bank, policy, gen, level_idx=3,
+                max_steps=cfg.time_limit))
+            trajs.append((traj, launched, time.perf_counter() - t))
+        (kern, launched, seconds), (plain, plain_launched, plain_s) = trajs
+        for name in ("board", "goals", "orientation"):
+            assert kern[name].dtype == plain[name].dtype, name
+            assert np.array_equal(kern[name], plain[name]), (suite, name)
+        assert (kern["reward"], kern["length"]) == (plain["reward"],
+                                                    plain["length"])
+        steps = cfg.time_limit
+        assert kern["length"] == steps  # the continuing stack never ends
+        want = {"K1_action": steps, f"K2_advance_fold[{rule}]": steps,
+                "S4_view_unpack": steps + 1}
+        for name, n in want.items():
+            assert launched.get(name, 0) == n, (name, n, launched)
+        assert not any(k.startswith(("K1", "K2", "K3"))
+                       for k in plain_launched), plain_launched
+        launches.update(launched)
+        t = time.perf_counter()
+        frames = [graphics.render_board(b, g, int(o)) for b, g, o in zip(
+            kern["board"], kern["goals"], kern["orientation"])]
+        render_s = time.perf_counter() - t
+        (npz,) = recording.save_trajectory(kern, f"{logdir}/{suite}",
+                                           render=False)
+        gif = npz[:-4] + ".gif"
+        t = time.perf_counter()
+        graphics.write_gif(gif, frames)
+        encode_s = time.perf_counter() - t
+        count, width, height, delays = gif_info(gif)
+        assert (count, height, width) == (steps, *frames[0].shape[:2])
+        assert set(delays) == {10}
+        print(f"record_episode {suite} ({rule} rule) at B = 1 through the "
+              f"training stack, view {TRAIN_VIEW}, SafeLifeCNN (seed 0), "
+              f"{steps} steps: kernels == plain step bit for bit (boards, "
+              f"goals, orientations, reward {kern['reward']:.4f}); step "
+              f"loop and its one transfer {seconds:.3f} s "
+              f"({seconds / steps * 1e3:.3f} ms a step; plain {plain_s:.3f} "
+              f"s); render_board over {steps} frames {render_s:.3f} s; GIF "
+              f"encoder {encode_s:.3f} s; npz {os.path.getsize(npz)} bytes, "
+              f"GIF {os.path.getsize(gif)} bytes ({count} frames of "
+              f"{width}x{height}, 10 cs each); launches {launched} on {smi}")
+    return launches
+
+
+def check_host_game(dev, smi):
+    """The port's SafeLifeGame against BatchedSafeLifeEnv on the kernels at
+    B = 1 (K1 and K3), first levels of append-still, seeded actions:
+    boards and rewards equal at every step (tests/test_game_api.py's case
+    on the card)."""
+    from safelife_torch.env.env import ACTION_NAMES
+    from safelife_torch.game import SafeLifeGame
+    levels = loader.load_levels("benchmarks/v1.0/append-still")
+    bank = loader.build_bank(levels, device=dev)
+    env = BatchedSafeLifeEnv(EnvConfig(view_shape=VIEW, auto_reset=False),
+                             device=dev)
+    assert env.uses_kernels()
+    rng_ = np.random.RandomState(5)
+    launches = collections.Counter()
+    steps = 0
+    t0 = time.perf_counter()
+    for i in range(GAME_LEVELS):
+        lv = levels[i]
+        game = SafeLifeGame(board_size=None)
+        game.deserialize({
+            "board": lv["board"], "goals": lv["goals"],
+            "agent_loc": (int(lv["agent_col"]), int(lv["agent_row"])),
+            "orientation": int(lv["orientation"]),
+            "spawn_prob": float(lv["spawn_prob"]),
+            "min_performance": float(lv["min_performance"])})
+        game.update_exit_colors()
+        state = env.reset_to_levels(bank, [i])
+        assert np.array_equal(bits16(state.board[..., 0]).cpu().numpy()
+                              .view(np.uint16), game.board)
+        for t in range(GAME_STEPS):
+            a = int(rng_.randint(0, 9))
+            start = game.current_points()
+            reward = game.execute_action(ACTION_NAMES[a])
+            game.advance_board()
+            reward += game.current_points() - start
+            game.update_exit_colors()
+            (state, ts), launched = counted(lambda: env.step(
+                state, bank, torch.tensor([a], device=dev)))
+            launches.update(launched)
+            steps += 1
+            board = bits16(state.board[..., 0]).cpu().numpy().view(np.uint16)
+            assert np.array_equal(board, game.board), (i, t, ACTION_NAMES[a])
+            assert float(ts.reward[0]) == float(reward), (i, t)
+            assert bool(ts.state_before_reset.game_over[0]) == bool(
+                game.game_over), (i, t)
+            if game.game_over:
+                break
+    assert launches["K1_action"] == steps, launches
+    assert launches["K3_advance_noreset[static_spawnless]"] == steps
+    print(f"host game == the card's env at B = 1: {GAME_LEVELS} append-still "
+          f"levels, {steps} seeded steps, boards and rewards equal at every "
+          f"step ({time.perf_counter() - t0:.1f} s); launches "
+          f"{dict(launches)} on {smi}")
+    return launches
+
+
+def check_cli(dev, smi, logdir):
+    """python -m safelife_torch, in process: train -> episode video ->
+    bench -> render -> selftest, and print; the launches of the run."""
+    import contextlib
+    import io
+    from safelife_torch.__main__ import main as cli
+    run = f"{logdir}/cli-run"
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        _, launches = counted(lambda: cli([
+            "train", run, "--levels", "benchmarks/v1.0/append-still.npz",
+            "--num-envs", str(CLI_ENVS), "--steps", str(CLI_STEPS)]))
+    train_s = time.perf_counter() - t
+    ckpts = sorted(int(f[:-3]) for f in os.listdir(f"{run}/checkpoints"))
+    step = ckpts[-1]
+    assert step >= CLI_STEPS, ckpts
+    npz, gif = f"{run}/episode-{step}.npz", f"{run}/episode-{step}.gif"
+    with np.load(npz) as data:
+        frames = len(data["board"])
+        shape = data["board"].shape[1:]
+    count, width, height, delays = gif_info(gif)
+    assert frames == driver.TrainerConfig().time_limit
+    assert (count, height, width) == (frames, shape[0] * 14, shape[1] * 14)
+    assert set(delays) == {10}
+    print(f"cli train: {CLI_ENVS} envs, --steps {CLI_STEPS}, checkpoints "
+          f"{ckpts}, {train_s:.2f} s with the integrity checks, the "
+          f"checkpoint and the episode video ({frames} frames; GIF "
+          f"{os.path.getsize(gif)} bytes, {count} frames of {width}x{height},"
+          f" 10 cs each); launches {launches} on {smi}")
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        _, launched = counted(lambda: cli([
+            "bench", "append-still", "--policy", run, "--side-effects",
+            "16"]))
+    launches = collections.Counter(launches) + collections.Counter(launched)
+    line = out.getvalue().strip()
+    assert line.startswith("levels=100 ") and "mean_side_effects" in line
+    assert launched.get("K5_advance_with_field") == 1000 + 2 * 16, launched
+    print(f"cli bench append-still --policy <run> --side-effects 16 "
+          f"({time.perf_counter() - t:.2f} s): {line}")
+    os.remove(gif)
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        _, launched = counted(lambda: cli(["render", npz]))
+        assert gif_info(gif)[0] == frames
+        counted_selftest = counted(lambda: cli(["selftest"]))[1]
+        cli(["print", "puzzles/01*"])
+    launches += collections.Counter(launched) + collections.Counter(
+        counted_selftest)
+    seconds = time.perf_counter() - t
+    text = out.getvalue()
+    assert f"-> {gif}" in text
+    assert f"integrity OK on {torch.cuda.get_device_name(0)}" in text
+    assert "\x1b[" in text
+    print(f"cli render, selftest and print ({seconds:.2f} s): "
+          f"{text.splitlines()[1]}; selftest launches {counted_selftest}")
+    for name in CLI_KERNELS:
+        assert launches.get(name, 0) > 0, (name, launches)
+    return launches
+
+
+def game_layer(dev, smi):
+    """Phase 10; returns its launches (the recording's, the host game's
+    counterpart's and the command line's; not those of the comparisons at
+    B = 1, 2, 3)."""
+    check_small_batches(dev)
+    with tempfile.TemporaryDirectory() as logdir:
+        launches = check_recording(dev, smi, logdir)
+        launches.update(check_host_game(dev, smi))
+        launches.update(check_cli(dev, smi, logdir))
+    return launches
+
+
 # The kernels held to 0 spills, by library: entry-function name fragments
 # and how many instantiations the build log must show.  K1: 5 block
 # widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
@@ -2266,15 +2617,19 @@ def main():
         assert evaluated.get(name, 0) > 0, (name, evaluated)
     assert any(k.startswith("K3_advance_noreset") for k in evaluated)
 
+    t = time.perf_counter()
+    played = game_layer(dev, smi)
+    print(f"phase 10: {time.perf_counter() - t:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = timings[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            # The main path's launches, the training path's and the
-            # evaluation path's.
+            # The main path's launches, the training path's, the
+            # evaluation path's and the game layer's.
             launches=launches[name] + trained.get(name, 0)
-            + evaluated.get(name, 0), max_abs_err=err,
+            + evaluated.get(name, 0) + played.get(name, 0), max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             # R1's plain version is one PyTorch call (a sum).
@@ -2283,7 +2638,10 @@ def main():
         err, ms, plain_ms, bound_ms, bound_by, library_ms = script[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=paths[path][counter], max_abs_err=err, ms=ms,
+            # T1 also runs in the game layer's selftest and training.
+            launches=paths[path][counter] + (played.get(counter, 0)
+                                             if path == "bench" else 0),
+            max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms))
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,204 @@
+"""Command-line interface: ``python -m safelife_torch <command>`` (port of
+``safelife_tpu.__main__``).
+
+Capability parity with the reference CLI (``safelife/__main__.py``:
+play/print/new/render) plus the training-framework commands the reference
+keeps in separate scripts (train ~ ``start-training``, bench ~
+``benchmarking.py``).  ``train``, ``bench`` and ``selftest`` run on the
+CUDA card unless ``--device`` names another device; without CUDA they
+refuse to start unless given ``--device cpu``.  ``new``,
+``gen-benchmarks`` and ``train --task`` need procedural generation,
+ROADMAP item A6, and raise ``NotImplementedError`` until it is ported.
+"""
+
+import argparse
+import sys
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="safelife_torch",
+        description="SafeLife on PyTorch and CUDA: play, render, train, "
+                    "benchmark.")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    def device_option(p):
+        p.add_argument("--device", default=None,
+                       help="torch device (default: cuda; without CUDA "
+                            "pass --device cpu)")
+
+    p = sub.add_parser("play", help="interactively play levels")
+    p.add_argument("levels", nargs="*", default=["puzzles"],
+                   help="level files / globs")
+    p.add_argument("--view", type=int, default=0,
+                   help="view size (0 = whole board)")
+    p.add_argument("--gl", action="store_true",
+                   help="play in a pyglet window (falls back to the "
+                        "terminal when pyglet is unavailable)")
+
+    p = sub.add_parser("print", help="print levels to the terminal")
+    p.add_argument("levels", nargs="+")
+
+    p = sub.add_parser("new", help="procedurally generate a new level (A6)")
+    p.add_argument("params", nargs="?", default="random/append-still",
+                   help="procgen yaml parameter file")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--save", type=str, default=None, help="save to npz")
+    p.add_argument("--play", action="store_true", help="play it")
+
+    p = sub.add_parser("render", help="render npz level/trajectory to png/gif")
+    p.add_argument("files", nargs="+")
+
+    p = sub.add_parser("train", help="train PPO on SafeLife levels")
+    p.add_argument("logdir", help="data directory for logs + checkpoints")
+    p.add_argument("--task", default=None,
+                   help="benchmark task curriculum (procgen, A6); "
+                        "overrides --levels")
+    p.add_argument("--levels", nargs="+",
+                   default=["benchmarks/v1.0/append-still.npz"])
+    p.add_argument("--num-envs", type=int, default=64)
+    p.add_argument("--steps", type=float, default=6e6)
+    p.add_argument("--impact-penalty", type=float, default=0.0)
+    p.add_argument("--min-performance", type=float, default=0.01)
+    p.add_argument("--view", type=int, default=33)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--algo", choices=("cnn", "lstm"), default="cnn",
+                   help="policy: feedforward CNN (default) or the "
+                        "recurrent CNN+LSTM trained with RecurrentPPO")
+    p.add_argument("--eval-every", type=float, default=0,
+                   help="frozen-suite eval cadence in env steps "
+                        "(0 = at every checkpoint; the final eval "
+                        "always runs)")
+    device_option(p)
+
+    p = sub.add_parser("gen-benchmarks",
+                       help="generate frozen benchmark level archives (A6)")
+    p.add_argument("out_dir", help="output root for the suites")
+    p.add_argument("--tasks", nargs="+", default=None)
+    p.add_argument("--num-levels", type=int, default=100)
+    p.add_argument("--workers", type=int, default=8)
+
+    p = sub.add_parser("bench", help="run a policy over a benchmark suite")
+    p.add_argument("suite", nargs="?", default="append-still")
+    p.add_argument("--policy", default="random",
+                   help="'random' or a checkpoint logdir")
+    p.add_argument("--logfile", default=None)
+    p.add_argument("--side-effects", type=int, default=0,
+                   help="side-effect sample count (0 = skip)")
+    device_option(p)
+
+    p = sub.add_parser("selftest",
+                       help="verify the device against host goldens")
+    device_option(p)
+
+    args = parser.parse_args(argv)
+    return COMMANDS[args.cmd](args)
+
+
+def cmd_play(args):
+    from .interactive.play import GameLoop, games_from_files
+    view = (args.view, args.view) if args.view else None
+    loop = GameLoop(games_from_files(*args.levels), view_size=view)
+    loop.run_gl() if getattr(args, "gl", False) else loop.run()
+
+
+def cmd_print(args):
+    from .interactive.play import GameLoop, games_from_files
+    GameLoop(games_from_files(*args.levels), print_only=True).run()
+
+
+def cmd_new(args):
+    from .levels.iterator import procgen_unported
+    raise procgen_unported("new")
+
+
+def cmd_render(args):
+    from .render.graphics import render_file
+    from .levels import loader
+    for pattern in args.files:
+        for fname in loader.find_files(pattern):
+            out = render_file(fname)
+            print(f"{fname} -> {out}")
+
+
+def cmd_train(args):
+    import logging
+
+    from . import resolve_device
+    if args.task:
+        from .levels.iterator import procgen_unported
+        raise procgen_unported(f"train --task {args.task}")
+    device = resolve_device(args.device)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from .training.driver import Trainer, TrainerConfig
+    from .training.ppo import PPOConfig
+    cfg = TrainerConfig(
+        num_envs=args.num_envs, total_steps=int(args.steps),
+        view_shape=(args.view, args.view),
+        impact_penalty=args.impact_penalty,
+        min_performance=args.min_performance,
+        seed=args.seed, logdir=args.logdir,
+        recurrent=(args.algo == "lstm"),
+        eval_every=int(args.eval_every))
+    trainer = Trainer(cfg, PPOConfig(), level_paths=tuple(args.levels),
+                      device=device)
+    trainer.restore_checkpoint()
+    trainer.train()
+
+
+def cmd_bench(args):
+    from . import benchmarking as B
+    from . import resolve_device
+    device = resolve_device(args.device)
+    view = None
+    if args.policy == "random":
+        policy = B.random_policy()
+    else:
+        from .training.driver import load_policy
+        policy, view = load_policy(args.policy, device=device)
+    kw = {"view_shape": view} if view else {}
+    results = B.run_benchmark(
+        args.suite, policy, logfile=args.logfile,
+        side_effect_samples=args.side_effects, device=device, **kw)
+    print(B.summarize(results))
+
+
+def cmd_gen_benchmarks(args):
+    from .levels.iterator import gen_benchmarks
+    outputs = gen_benchmarks(args.out_dir, tasks=args.tasks,
+                             num_levels=args.num_levels,
+                             num_workers=args.workers)
+    for out in outputs:
+        print(out)
+
+
+def cmd_selftest(args):
+    import torch
+
+    from . import resolve_device
+    from .utils.integrity import check_device_integrity
+    device = resolve_device(args.device)
+    check_device_integrity(device)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "the CPU")
+    kernels = " and kernels K4 and T1" if device.type == "cuda" else ""
+    print(f"integrity OK on {name}: CA advance, scoring chains, "
+          f"side-effect count, reset gather{kernels} all match host goldens")
+
+
+COMMANDS = {
+    "play": cmd_play,
+    "print": cmd_print,
+    "new": cmd_new,
+    "render": cmd_render,
+    "train": cmd_train,
+    "bench": cmd_bench,
+    "gen-benchmarks": cmd_gen_benchmarks,
+    "selftest": cmd_selftest,
+}
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -84,6 +84,27 @@ COLOR_NAMES = {
     "white": COLORS,
 }
 
+# Index (0..7) -> color name, ordered KRGYBMCW by the 3-bit color value.
+COLOR_INDEX_NAMES = (
+    "black", "red", "green", "yellow", "blue", "magenta", "cyan", "white")
+
+NAMED_CELLS = {
+    "EMPTY": EMPTY,
+    "LIFE": LIFE,
+    "HARD LIFE": HARD_LIFE,
+    "WALL": WALL,
+    "CRATE": CRATE,
+    "SPAWNER": SPAWNER,
+    "HARD SPAWNER": HARD_SPAWNER,
+    "EXIT": LEVEL_EXIT,
+    "ICECUBE": ICE_CUBE,
+    "PLANT": PLANT,
+    "TREE": TREE,
+    "FOUNTAIN": FOUNTAIN,
+    "PARASITE": PARASITE,
+    "WEED": WEED,
+}
+
 # Goal-color (row) x cell-color (column) -> points per live cell, colors
 # ordered KRGYBMCW by their 3-bit value.  Part of the wire format: levels
 # are only interchangeable if scoring matches.
@@ -99,3 +120,53 @@ POINT_TABLE = np.array([
     [+0, -1, +0, +0, +0, +0, +0, +0],   # white / rainbow goal
 ], dtype=np.int32)
 POINT_TABLE.setflags(write=False)
+
+
+class CellTypes:
+    """Namespace mirroring the reference ``CellTypes`` attribute API."""
+
+    alive_bit = ALIVE_BIT
+    agent_bit = AGENT_BIT
+    pushable_bit = PUSHABLE_BIT
+    pullable_bit = PULLABLE_BIT
+    destructible_bit = DESTRUCTIBLE_BIT
+    frozen_bit = FROZEN_BIT
+    preserving_bit = PRESERVING_BIT
+    inhibiting_bit = INHIBITING_BIT
+    spawning_bit = SPAWNING_BIT
+    exit_bit = EXIT_BIT
+    color_bit = COLOR_BIT
+
+    alive = np.uint16(ALIVE)
+    agent = np.uint16(AGENT)
+    pushable = np.uint16(PUSHABLE)
+    pullable = np.uint16(PULLABLE)
+    destructible = np.uint16(DESTRUCTIBLE)
+    frozen = np.uint16(FROZEN)
+    preserving = np.uint16(PRESERVING)
+    inhibiting = np.uint16(INHIBITING)
+    spawning = np.uint16(SPAWNING)
+    exit = np.uint16(EXIT)
+    color_r = np.uint16(COLOR_R)
+    color_g = np.uint16(COLOR_G)
+    color_b = np.uint16(COLOR_B)
+
+    empty = np.uint16(EMPTY)
+    freezing = np.uint16(FREEZING)
+    player = np.uint16(PLAYER)
+    wall = np.uint16(WALL)
+    movable = np.uint16(MOVABLE)
+    crate = np.uint16(CRATE)
+    spawner = np.uint16(SPAWNER)
+    hard_spawner = np.uint16(HARD_SPAWNER)
+    level_exit = np.uint16(LEVEL_EXIT)
+    life = np.uint16(LIFE)
+    colors = tuple(np.uint16(c) for c in COLOR_TUPLE)
+    rainbow_color = np.uint16(COLORS)
+    ice_cube = np.uint16(ICE_CUBE)
+    plant = np.uint16(PLANT)
+    tree = np.uint16(TREE)
+    fountain = np.uint16(FOUNTAIN)
+    parasite = np.uint16(PARASITE)
+    weed = np.uint16(WEED)
+    powers = np.uint16(POWERS)

@@ -1,5 +1,6 @@
 """The SafeLife CA step in plain numpy: the host oracle of the integrity
-guard (the port's copy of ``safelife_tpu.ops.life_numpy``, advance only).
+guard and the physics of the host game (the port's copy of
+``safelife_tpu.ops.life_numpy``).
 
 Whole-board vector ops, no per-cell loops.  Every 3x3 Moore neighbourhood
 lies on a torus and includes the cell itself:
@@ -16,6 +17,12 @@ lies on a torus and includes the cell itself:
   dead: kept if frozen or inhibited, else born at ``count == 3``, else a
   destructible live cell spawns next to a spawner where the draw is below
   ``spawn_prob``, else kept.
+
+RNG contract of the host game: uniforms are consumed in row-major order,
+one at each cell that reaches the spawn test (dead, not frozen, not
+inhibited, ``count != 3``, next to a spawner), the reference C engine's
+order, so that a fixed-seed :class:`..utils.rng.NumpyRandomBridge` replays
+its games bit for bit.
 """
 
 import numpy as np
@@ -35,11 +42,15 @@ def _neighborhood_any(x):
     return r | np.roll(r, 1, axis=-2) | np.roll(r, -1, axis=-2)
 
 
-def advance_board_reference(board, rand_field, spawn_prob=0.3):
+def advance_board_reference(board, rand_field=None, spawn_prob=0.3, *,
+                            rng=None):
     """Advance one ``(H, W)`` uint16 board one step; returns a new array.
 
     ``rand_field`` is an ``(H, W)`` field of uniform draws in [0, 1); a
-    spawn fires where the draw is below ``spawn_prob``.
+    spawn fires where the draw is below ``spawn_prob``.  Without it the
+    draws are taken only at the cells of :func:`spawn_consumption_mask`,
+    in row-major order, from ``rng`` (anything with ``draw(n)``, such as
+    :class:`..utils.rng.NumpyRandomBridge`) or else from ``np.random``.
     """
     board = np.asarray(board, dtype=np.uint16)
     alive = (board & C.ALIVE).astype(np.int32)
@@ -68,6 +79,12 @@ def advance_board_reference(board, rand_field, spawn_prob=0.3):
     born = (count == 3) & ~frozen & ~inhibited
 
     spawn_eligible = ~is_alive & ~frozen & ~inhibited & ~born & near_spawner
+    if rand_field is None:
+        rand_field = np.ones(board.shape)
+        n = int(spawn_eligible.sum())
+        if n:
+            rand_field[spawn_eligible] = (
+                rng.draw(n) if rng is not None else np.random.random(n))
     spawned = spawn_eligible & (rand_field < spawn_prob)
 
     born_cell = (np.uint16(C.ALIVE) | inherit
@@ -79,3 +96,20 @@ def advance_board_reference(board, rand_field, spawn_prob=0.3):
         np.where(survives, board, np.uint16(0)),
         np.where(born, born_cell, np.where(spawned, spawn_cell, board)),
     ).astype(np.uint16)
+
+
+def spawn_consumption_mask(board):
+    """Boolean mask of the cells that consume one uniform draw this step.
+
+    It depends on the board alone, not on the drawn values, so a caller
+    can pre-draw exactly the uniforms the step consumes, in the
+    reference's order.
+    """
+    board = np.asarray(board, dtype=np.uint16)
+    alive = (board & C.ALIVE).astype(np.int32)
+    frozen = (board & C.FROZEN) != 0
+    count = _neighborhood_sum(alive)
+    inhibited = _neighborhood_any((board & C.INHIBITING) != 0)
+    near_spawner = _neighborhood_any((board & C.SPAWNING) != 0)
+    born = (count == 3) & ~frozen & ~inhibited
+    return ~alive.astype(bool) & ~frozen & ~inhibited & ~born & near_spawner

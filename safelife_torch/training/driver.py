@@ -15,10 +15,10 @@ Checkpoints are ``torch.save`` files under ``<logdir>/checkpoints/``: the
 net's and the optimizer's state, ``spe``, the generator's state and the
 global env counters.  On restore the env state is kept and the global
 counters are resynced (the reference does the same for its
-``global_counter``, ``safelife_ppo.py:88-106``).
-
-Not ported yet, and refused with ``NotImplementedError`` when asked for:
-episode videos (``record_videos`` with a ``logdir``, ROADMAP A4).
+``global_counter``, ``safelife_ppo.py:88-106``).  With ``record_videos``
+every checkpoint is followed by one recorded episode of the current policy,
+``<logdir>/episode-<step>.npz`` and its ``.gif``
+(:meth:`Trainer.maybe_record_video`).
 """
 
 import dataclasses
@@ -62,7 +62,7 @@ class TrainerConfig:
     seed: int = 0
     logdir: Optional[str] = None
     max_checkpoints: int = 3
-    record_videos: bool = True    # episode gif at each checkpoint (A4)
+    record_videos: bool = True    # episode gif after each checkpoint
     # Periodic frozen-suite evaluation: a suite name / path / LevelBank;
     # None disables.  Results go to eval.yaml and eval/* scalars, with the
     # full EMD side-effect scores.  eval_every sets the cadence in env
@@ -95,13 +95,6 @@ def make_training_env(cfg: TrainerConfig, device=None):
     return W.ContinuingWrapper(env)
 
 
-def _unported(cfg: TrainerConfig):
-    if cfg.record_videos and cfg.logdir:
-        raise NotImplementedError(
-            "record_videos with a logdir: episode recording is ROADMAP "
-            "item A4, not ported yet; pass record_videos=False")
-
-
 def _next_on_grid(step, every):
     """The first multiple of ``every`` above ``step``."""
     return (step // every + 1) * every
@@ -125,7 +118,6 @@ class Trainer:
                      "benchmarks/v1.0/append-still.npz",),
                  net=None, env=None, level_names=None,
                  bank_schedule=None, bank_factory=None, device=None):
-        _unported(trainer_cfg)
         self.cfg = trainer_cfg
         self.ppo_cfg = ppo_cfg
         self.device = resolve_device(device)
@@ -323,6 +315,7 @@ class Trainer:
 
             if step >= next_save:
                 self.save_checkpoint()
+                self.maybe_record_video()
                 saved = step
                 next_save = _next_on_grid(step, self.cfg.save_every)
             if step >= next_eval:
@@ -332,6 +325,7 @@ class Trainer:
 
         if self.global_step() != saved:
             self.save_checkpoint()
+            self.maybe_record_video()
         if self.global_step() != evaluated:
             self.evaluate()  # final frozen-suite numbers
         check_device_integrity(self.device)  # a corrupted run must not
@@ -447,6 +441,23 @@ class Trainer:
                     float(np.mean(results["side_effects"])), step)
         logger.info("eval @ %d: %s", step, summarize(results))
         return results
+
+    def maybe_record_video(self):
+        """With ``record_videos`` and a ``logdir``: one episode of the
+        training env at B = 1 from a level drawn by the trainer's generator,
+        with the current policy, for up to ``time_limit`` steps, saved as
+        ``<logdir>/episode-<step>.npz`` and ``.gif``."""
+        if not (self.cfg.record_videos and self.cfg.logdir):
+            return
+        from ..metrics.recording import record_episode, save_trajectory
+        level_idx = int(torch.randint(
+            0, self.bank.num_levels, (1,), generator=self.generator,
+            device=self.device))
+        traj = record_episode(self.env, self.bank, self.policy_fn(),
+                              self.generator, level_idx=level_idx,
+                              max_steps=self.cfg.time_limit)
+        save_trajectory(traj, os.path.join(
+            self.cfg.logdir, f"episode-{self.global_step()}"))
 
     def policy_fn(self):
         """Sampling policy of the trainer's net (its current weights at each

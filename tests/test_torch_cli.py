@@ -1,0 +1,139 @@
+"""``python -m safelife_torch`` on the CPU, in process through
+``safelife_torch.__main__.main``: ``print`` and ``render`` (a level, a
+trajectory) against the JAX package's output, a tiny ``train`` on a
+synthetic archive through ``--levels`` that writes its checkpoint and
+episode video, ``bench`` of that logdir, and ``selftest``; the commands
+that need procedural generation raise naming A6 (``train``, ``bench`` and
+``selftest`` without ``--device`` on a box without CUDA:
+``tests/test_torch_imports.py``).
+The trainer's and the bench's time limit is cut to 12 steps for speed:
+this file tests the command line's wiring, the paths behind it have
+tests of their own.
+"""
+
+import functools
+import os
+
+import imageio.v2 as imageio
+import numpy as np
+import pytest
+import torch
+
+from safelife_torch import __main__ as cli
+from safelife_torch import benchmarking
+from safelife_torch.game import SafeLifeGame
+from safelife_torch.levels import synth
+from safelife_torch.levels.iterator import combine_levels
+from safelife_torch.training import driver
+from safelife_tpu import __main__ as jax_cli
+
+torch.set_num_threads(1)
+
+TIME_LIMIT = 12
+
+
+@pytest.fixture
+def archive(tmp_path):
+    """Four synthetic 13x13 levels combined into one archive."""
+    os.makedirs(tmp_path / "levels")
+    for i in range(4):
+        lv = synth.simple_level(13, 13, seed=i)
+        game = SafeLifeGame(board_size=None)
+        game.deserialize({
+            "board": lv["board"], "goals": lv["goals"],
+            "agent_loc": (int(lv["agent_col"]), int(lv["agent_row"])),
+            "orientation": int(lv["orientation"]),
+            "spawn_prob": float(lv["spawn_prob"]),
+            "min_performance": float(lv["min_performance"])})
+        game.save(str(tmp_path / "levels" / f"level-{i}.npz"))
+    return combine_levels(str(tmp_path / "levels"))
+
+
+def test_print_matches_jax(capsys):
+    cli.main(["print", "puzzles/01*"])
+    got = capsys.readouterr().out
+    jax_cli.main(["print", "puzzles/01*"])
+    assert got == capsys.readouterr().out
+    assert "\x1b[" in got and got.count("\n") > 10
+
+
+def test_render_level_and_trajectory_match_jax(tmp_path, capsys):
+    lv = synth.simple_level(13, 13, seed=1)
+    boards = np.stack([np.roll(lv["board"], t, axis=1) for t in range(5)])
+    outputs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        np.savez(tmp_path / f"{name}-level.npz", board=lv["board"],
+                 goals=lv["goals"])
+        np.savez(tmp_path / f"{name}-traj.npz", board=boards,
+                 goals=np.stack([lv["goals"]] * 5),
+                 orientation=np.arange(5) % 4)
+        main(["render", str(tmp_path / f"{name}-*.npz")])
+        outputs[name] = capsys.readouterr().out
+        assert os.path.exists(tmp_path / f"{name}-level.png")
+        assert os.path.exists(tmp_path / f"{name}-traj.gif")
+    assert outputs["port"].count(" -> ") == 2
+    np.testing.assert_array_equal(imageio.imread(tmp_path / "port-level.png"),
+                                  imageio.imread(tmp_path / "jax-level.png"))
+    got = imageio.mimread(tmp_path / "port-traj.gif")
+    want = imageio.mimread(tmp_path / "jax-traj.gif")
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[..., :3], w[..., :3])
+
+
+def test_train_bench_render_selftest(tmp_path, archive, monkeypatch, capsys):
+    monkeypatch.setattr(driver, "TrainerConfig", functools.partial(
+        driver.TrainerConfig, time_limit=TIME_LIMIT))
+    monkeypatch.setattr(benchmarking, "run_benchmark", functools.partial(
+        benchmarking.run_benchmark, time_limit=TIME_LIMIT))
+    run = str(tmp_path / "run")
+    writers = []
+    make_writer = driver.make_summary_writer
+
+    def tracked_writer(logdir):
+        writers.append(make_writer(logdir))
+        return writers[-1]
+
+    monkeypatch.setattr(driver, "make_summary_writer", tracked_writer)
+    try:
+        cli.main(["train", run, "--levels", archive, "--num-envs", "4",
+                  "--steps", "160", "--view", "17", "--device", "cpu"])
+    finally:
+        for w in writers:
+            w.close()  # leave no event-file thread behind
+    files = os.listdir(run)
+    assert "config.json" in files and os.listdir(os.path.join(run,
+                                                              "checkpoints"))
+    step = max(int(f[:-3]) for f in os.listdir(os.path.join(run,
+                                                            "checkpoints")))
+    assert {f"episode-{step}.npz", f"episode-{step}.gif"} <= set(files)
+    with np.load(os.path.join(run, f"episode-{step}.npz")) as data:
+        frames = len(data["board"])
+    assert 1 <= frames <= TIME_LIMIT
+
+    capsys.readouterr()
+    cli.main(["bench", archive, "--policy", run, "--side-effects", "4",
+              "--device", "cpu"])
+    line = capsys.readouterr().out
+    assert line.startswith("levels=4 ") and "mean_side_effects=" in line
+
+    os.remove(os.path.join(run, f"episode-{step}.gif"))
+    cli.main(["render", os.path.join(run, f"episode-{step}.npz")])
+    gif = os.path.join(run, f"episode-{step}.gif")
+    assert len(imageio.mimread(gif)) == frames
+
+    cli.main(["selftest", "--device", "cpu"])
+    assert "integrity OK on the CPU" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["new"], ["new", "random/append-still", "--seed", "3"],
+    ["gen-benchmarks", "out"],
+    ["train", "run", "--task", "append-still", "--device", "cpu"],
+    ["play", "levels.yaml"], ["print", "levels.yaml"]])
+def test_procgen_commands_raise_naming_a6(tmp_path, monkeypatch, argv):
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "levels.yaml").write_text("{}\n")
+    with pytest.raises(NotImplementedError, match="A6"):
+        cli.main(argv)
+    assert not os.path.exists(tmp_path / "run")

@@ -1,5 +1,7 @@
-"""The PyTorch port imports nothing of JAX or of the JAX package, and its
-entry points do not fall back to the CPU when no device is named."""
+"""The PyTorch port imports nothing of JAX or of the JAX package (nor, at
+import, the optional imageio, PIL, pyglet or gymnasium, which the card
+lacks), and its entry points do not fall back to the CPU when no device
+is named."""
 
 import os
 import subprocess
@@ -14,7 +16,8 @@ _IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 sys.modules["jax"] = None
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "safelife_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "safelife_tpu",
+          "imageio", "PIL", "pyglet", "gymnasium")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -42,7 +45,7 @@ def test_port_and_chip_smoke_import_without_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 38, proc.stdout
+    assert int(proc.stdout.strip()) >= 50, proc.stdout
 
 
 def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch, tmp_path):
@@ -65,3 +68,8 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch, tmp_path):
     trainer = Trainer(cfg, device="cpu")
     assert trainer.device.type == "cpu"
     assert next(trainer.net.parameters()).device.type == "cpu"
+    from safelife_torch.__main__ import main
+    for argv in (["train", str(tmp_path / "run")], ["bench"], ["selftest"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    assert not os.path.exists(tmp_path / "run")

@@ -408,12 +408,13 @@ def test_tiny_trainer_switches_and_refreshes_banks():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(eval_suite="append-still"), None),
-    (dict(record_videos=True, logdir="{tmp}"), "A4"),
+    (dict(record_videos=True, logdir="{tmp}", time_limit=12), None),
     (dict(recurrent=True), None),
 ])
 def test_trainer_refuses_unported_options(tmp_path, kw, item):
-    """Episode videos (ROADMAP A4) are refused; frozen-suite evaluation
-    and the recurrent policy, ported since, are taken."""
+    """Frozen-suite evaluation, episode videos and the recurrent policy,
+    each once refused here as unported, are taken: the Trainer is built,
+    and with ``record_videos`` and a logdir it records an episode."""
     bank = tsynth.synth_bank(2, h=13, w=13, device="cpu")
     kw = {k: str(tmp_path) if v == "{tmp}" else v for k, v in kw.items()}
     cfg = tdriver.TrainerConfig(num_envs=8, view_shape=VIEW,
@@ -421,6 +422,12 @@ def test_trainer_refuses_unported_options(tmp_path, kw, item):
     if item is None:
         trainer = tdriver.Trainer(cfg, bank=bank, device="cpu")
         assert (trainer.carry is not None) == cfg.recurrent
+        if cfg.record_videos:
+            trainer.writer.close()  # leave no event-file thread behind
+            trainer.maybe_record_video()
+            assert sorted(f for f in os.listdir(tmp_path)
+                          if f.startswith("episode-")) == [
+                "episode-0.gif", "episode-0.npz"]
         return
     with pytest.raises(NotImplementedError, match=item):
         tdriver.Trainer(cfg, bank=bank, device="cpu")
