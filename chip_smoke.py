@@ -109,8 +109,23 @@ Phases, each an assertion that ends the run on failure:
    episode's npz and GIF, ``bench --side-effects 16`` of that run,
    ``render`` of the episode, ``selftest`` and ``print``, with their
    launches of K1, K2, K3, UNPACK, K4, K5 and T1;
-11. one JSON line listing the kernels (the launches of phases 5, 8, 9
-   and 10), and last the result line; before it the run fails if the
+11. the level supply: K5 against its plain version at the annealer's
+   shapes ((26, 26, 256), (26, 26, 4096), (16, 16, 48)) on mid-anneal
+   boards with spawners; ``gen_still_lifes`` at 16x16 (B = 4096, 2000
+   iterations; and period 2 at B = 1024): convergence, every converged
+   board a cycle under K5, the still-life ensemble against the C++
+   annealer's 48 seeds on the card's host, seconds, boards/s and
+   launches an iteration from a profile; ``gen_partitioned_levels`` for
+   all 10 task specs (128 levels, 1200 iterations): convergence, the
+   archive gates and invariants of ``tests/test_procgen_distribution.py``,
+   the bank flags and the levels that break them, levels/s; two factory
+   banks through K1 + K2 against the plain step at B = 4096; the host
+   pipeline (every preset, ``gen_bank`` onto the card); and in process
+   ``train --task append-spawn``, a curriculum trainer whose bank switches
+   after its first batch (K2's rule changes in the counts), ``new`` and
+   ``gen-benchmarks`` on its spawned pool;
+12. one JSON line listing the kernels (the launches of phases 5, 8, 9, 10
+   and 11), and last the result line; before it the run fails if the
    build log shows a K1-K8, S3-S5, R1 or view kernel instantiation that
    spills.
 
@@ -2482,6 +2497,486 @@ def game_layer(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: level supply (procgen on the host, the batched annealer on K5,
+# the device banks, the curricula).
+# ---------------------------------------------------------------------------
+
+ANNEAL_SHAPES = ((26, 26, 256), (26, 26, 4096), (16, 16, 48))
+# gen_still_lifes at full width: 16x16 boards, the mask [3:13, 3:13].
+STILL_BATCH = 4096
+STILL_ITERS = 2000
+OSC_BATCH = 1024
+NATIVE_SEEDS = 48
+# Levels a factory bank holds here: 128, not the 256 the phase was
+# planned with (the scaffolds' host time grows with the levels; the
+# annealer's does not).
+FACTORY_LEVELS = 128
+# The share of converged levels each factory bank must reach: 0.5, the
+# gate of tests/test_procgen_distribution.py, but for navigation, whose
+# reference factory converges 0.48 at its default 1200 iterations
+# (safelife_tpu on the CPU, 256 levels, tests/procgen_convergence.py):
+# there the reference's share less three standard errors at
+# FACTORY_LEVELS levels.
+REFERENCE_CONVERGENCE = {"navigation": 0.48}
+
+
+def convergence_gate(task):
+    ref = REFERENCE_CONVERGENCE.get(task)
+    if ref is None:
+        return 0.5
+    return ref - 3 * np.sqrt(ref * (1 - ref) / FACTORY_LEVELS)
+FACTORY_TASKS = ("append-still", "append-still-easy", "append-dynamic",
+                 "append-spawn", "prune-still", "prune-still-easy",
+                 "prune-still-hard", "prune-dynamic", "prune-spawn",
+                 "navigation")
+FACTORY_ROLLOUTS = ("append-still", "prune-spawn")
+EASY_REF_LEVELS = 24
+HOST_LEVELS = 2
+HOST_BANK = ("append-still", 100)
+# The curriculum trainer's width and levels: the CLI's 64 environments.
+CURRICULUM_ENVS = 64
+CURRICULUM_LEVELS = 16
+# What train --task append-spawn launches: the rollout on the first
+# (spawnless) bank, the frozen-suite eval on append-spawn (static goals,
+# spawners) with its co-evolution, the bank load, the integrity guard.
+TASK_RUN_KERNELS = ("K1_action", "K2_advance_fold[static_spawnless]",
+                    "K3_advance_noreset[static]", "K4_advance_spawnless",
+                    "K5_advance_with_field", "T1_philox_words")
+SUPPLY_KERNELS = TASK_RUN_KERNELS + ("K2_advance_fold[static]",)
+
+
+def level_stats(board, goals, min_perf):
+    """tests/test_procgen_distribution.py's per-level statistics (the copy
+    here imports nothing of the JAX package)."""
+    base = board & ~np.uint16(C.COLORS)
+    alive = (board & C.ALIVE) != 0
+    from safelife_torch.ops import life_numpy, scoring
+    stats = dict(
+        alive=alive.sum(),
+        walls=((base & ~np.uint16(C.MOVABLE)) == C.WALL).sum(),
+        trees=((base & ~np.uint16(C.MOVABLE)) == C.TREE).sum(),
+        spawners=((board & C.SPAWNING) != 0).sum(),
+        goal_cells=((goals & C.COLORS) != 0).sum(),
+        blue_goals=((goals & C.COLORS) == C.COLOR_B).sum(),
+        red_life=(alive & ((board & C.COLOR_R) != 0)).sum(),
+        possible=(scoring.possible_score_np(goals[None])[0]
+                  - scoring.performance_score_np(board[None], goals[None])[0]),
+        min_perf=min_perf,
+    )
+    b1 = life_numpy.advance_board_reference(board, spawn_prob=0.0)
+    stats["oscillates"] = float((b1 != board).any())
+    return stats
+
+
+def ensemble_stats(levels):
+    rows = [level_stats(lv["board"], lv["goals"],
+                        float(lv["min_performance"])) for lv in levels]
+    return {k: np.array([float(r[k]) for r in rows]) for k in rows[0]}
+
+
+def compare_ensembles(ref, gen, what):
+    """The gate of tests/test_procgen_distribution.py: per statistic, a
+    5-sigma z-test on the means or a relative band of 0.35."""
+    worst = 0.0
+    for key in ref:
+        r, g = ref[key], gen[key]
+        se = np.sqrt(r.var() / len(r) + g.var() / len(g)) + 1e-9
+        z = abs(r.mean() - g.mean()) / se
+        rel = abs(r.mean() - g.mean()) / (abs(r.mean()) + 1.0)
+        assert z < 5.0 or rel < 0.35, (
+            f"{what}/{key}: reference {r.mean():.2f}±{r.std():.2f} vs "
+            f"generated {g.mean():.2f}±{g.std():.2f} (z={z:.1f}, "
+            f"rel={rel:.2f})")
+        worst = max(worst, min(z / 5.0, rel / 0.35))
+    return worst
+
+
+def still_life_stats(boards):
+    """Structural statistics of a still-life ensemble (fill, live-neighbour
+    histogram, components), as tests/test_procgen_distribution.py's."""
+    from scipy import ndimage
+    rows = []
+    for board in boards:
+        alive = (np.asarray(board) & C.ALIVE) != 0
+        n = sum(np.roll(alive, (di, dj), (0, 1))
+                for di in (-1, 0, 1) for dj in (-1, 0, 1) if di or dj)
+        live_n = n[alive]
+        n_comp = ndimage.label(
+            alive, structure=np.ones((3, 3)))[1] if alive.any() else 0
+        rows.append(dict(
+            fill=alive.mean(),
+            mean_neighbors=live_n.mean() if len(live_n) else 0.0,
+            frac_n2=(live_n == 2).mean() if len(live_n) else 0.0,
+            frac_n3=(live_n == 3).mean() if len(live_n) else 0.0,
+            components=n_comp))
+    return {k: np.array([r[k] for r in rows]) for k in rows[0]}
+
+
+def anneal_mask(h=16, w=16):
+    mask = np.zeros((h, w), bool)
+    mask[3:h - 3, 3:w - 3] = True
+    return mask
+
+
+def check_k5_anneal_shapes(dev, smi):
+    """K5 at the annealer's shapes on mid-anneal boards (spawner soups
+    annealed 40 iterations), against its plain version, bit for bit, with
+    the all-false spawn field of the violation field and a random one."""
+    from safelife_torch.procgen import batched
+    rng_ = np.random.default_rng(11)
+    gen = torch.Generator(dev)
+    gen.manual_seed(11)
+    for shape in ANNEAL_SHAPES:
+        h, w, b = shape
+        start = soup(rng_, shape, (C.SPAWNER, C.WALL, C.TREE), density=0.02)
+        mask = torch.as_tensor(rng_.random(shape) < 0.6, device=dev)
+        boards, _ = batched.gen_still_lifes(
+            gen, mask, b, board=torch.as_tensor(start, device=dev), iters=40)
+        assert bool((bits16(boards) & C.SPAWNING).ne(0).any()), shape
+        for field in (torch.zeros(shape, dtype=torch.bool, device=dev),
+                      torch.rand(shape, generator=gen, device=dev) < 0.3):
+            assert_bit_equal(
+                life_kernels.advance_with_field(boards, field),
+                life_kernels.advance_with_field_plain(boards, field),
+                f"K5 at the annealer's shape {shape}")
+        zeros = torch.zeros(shape, dtype=torch.bool, device=dev)
+        k5 = time_ms(lambda: life_kernels.advance_with_field(boards, zeros),
+                     50)
+        print(f"K5 == plain on mid-anneal boards {shape} (spawners, walls, "
+              f"trees; zero and random spawn fields): bit for bit; "
+              f"{k5:.4f} ms a launch, on {smi}")
+
+
+def anneal_profile(gen, mask, batch, period, **kw):
+    """Device kernels a gen_still_lifes iteration launches, from a profile
+    of 20 iterations at ``batch``; and the idle share of their wall."""
+    from safelife_torch.procgen import batched
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    iters = 20
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batched.gen_still_lifes(gen, mask, batch, iters=iters,
+                                period=period, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    assert kernels, "the profiler recorded no device kernel"
+    # The anneal loop, less the final statistics (a violation field).
+    per_iter = (len(kernels) - 2 * period) / iters
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    top = ", ".join(f"{k[:40]} {ms / busy:.0%}"
+                    for k, ms in by_name.most_common(3))
+    return per_iter, wall_ms / iters, busy / iters, 1 - busy / wall_ms, top
+
+
+def check_still_lifes(dev, smi):
+    """gen_still_lifes at full width on its own draws: convergence, every
+    converged board a still life (one K5 step, bit for bit) / a period-2
+    oscillator, the still-life ensemble against the C++ annealer's on the
+    card's host; seconds, boards/s, launches an iteration."""
+    from safelife_torch.procgen import batched, native
+    mask = anneal_mask()
+    gen_mask = np.where(mask, native.NEW_CELL_MASK | native.CAN_OSCILLATE_MASK
+                        | native.INCLUDE_VIOLATIONS_MASK, 0)
+    halo = np.zeros_like(gen_mask)
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            halo |= np.roll(gen_mask & 1, (di, dj), (0, 1))
+    gen_mask = np.where((halo > 0) & (gen_mask == 0),
+                        native.INCLUDE_VIOLATIONS_MASK, gen_mask)
+    t0 = time.perf_counter()
+    native_boards = []
+    for seed in range(NATIVE_SEEDS):
+        try:
+            native_boards.append(native.gen_pattern(
+                np.zeros((16, 16), np.uint16), gen_mask.astype(np.int32),
+                period=1, min_fill=0.15, temperature=0.45, rng=seed))
+        except native.BoardGenException:
+            pass
+    native_s = time.perf_counter() - t0
+    assert len(native_boards) >= 0.8 * NATIVE_SEEDS
+    launches = collections.Counter()
+    for period, batch, kw in (
+            (1, STILL_BATCH, dict(min_fill=0.15, temperature=0.45)),
+            (2, OSC_BATCH, dict(min_fill=0.1, temperature=0.7,
+                                osc_bonus=0.5))):
+        gen = torch.Generator(dev)
+        gen.manual_seed(period)
+        t0 = time.perf_counter()
+        (boards, conv), launched = counted(lambda: batched.gen_still_lifes(
+            gen, mask, batch, iters=STILL_ITERS, period=period, **kw))
+        seconds = time.perf_counter() - t0
+        launches.update(launched)
+        k5 = launched["K5_advance_with_field"]
+        assert k5 == (STILL_ITERS + 1) * period, launched
+        conv_np = conv.cpu().numpy()
+        rate = conv_np.mean()
+        assert rate >= (0.8 if period == 1 else 0.5), (period, rate)
+        # Every converged board returns to itself after `period` K5 steps.
+        zeros = torch.zeros(boards.shape, dtype=torch.bool, device=dev)
+        cycled = boards
+        for _ in range(period):
+            cycled = life_kernels.advance_with_field(cycled, zeros)
+        same = (bits16(cycled) == bits16(boards)).all(0).all(0)
+        assert bool(same[conv].all()), f"period {period}: a converged board "\
+            "is no cycle"
+        boards_np = boards.cpu().numpy()
+        assert not (boards_np[~mask] != 0).any()
+        msg = ""
+        if period == 1:
+            worst = compare_ensembles(
+                still_life_stats(native_boards),
+                still_life_stats([boards_np[..., i]
+                                  for i in np.flatnonzero(conv_np)]),
+                "still lifes: port annealer vs C++")
+            msg = (f"; ensemble == the C++ annealer's {len(native_boards)} "
+                   f"boards (host {native_s:.2f} s) within the gate (worst "
+                   f"statistic at {worst:.2f} of its bound)")
+        else:
+            moved = life_kernels.advance_with_field(boards, zeros)
+            osc = (bits16(moved) != bits16(boards)).any(0).any(0) & conv
+            assert bool(osc.any()), "no converged board oscillates"
+            msg = f"; {int(osc.sum())} converged boards oscillate"
+        per_iter, wall_ms, busy_ms, idle, top = anneal_profile(
+            gen, mask, batch, period, **kw)
+        print(f"gen_still_lifes 16x16 period {period} B={batch} "
+              f"{STILL_ITERS} iterations: {seconds:.2f} s, converged "
+              f"{rate:.4f} ({conv_np.sum() / seconds:.1f} converged boards/s)"
+              f", every converged board a cycle under K5{msg}; K5 launches "
+              f"{k5} (= (iterations + 1) x period); profile of 20 "
+              f"iterations: {per_iter:.1f} kernel launches an iteration, "
+              f"{wall_ms:.3f} ms an iteration of wall, {busy_ms:.3f} ms "
+              f"of device, idle share {idle:.1%} ({top}); on {smi}")
+    return launches
+
+
+def flag_breaks(bank, conv):
+    """Levels whose board or goals break a flag the bank certifies, all
+    and the converged among them: goal boards K5 does not leave fixed
+    under ``static_goals``, boards or goals holding a spawner under
+    ``spawnless``."""
+    goals = bank.goals
+    zeros = torch.zeros(goals.shape, dtype=torch.bool, device=goals.device)
+    conv = torch.as_tensor(conv, device=goals.device)
+    out = {}
+    if bank.static_goals:
+        moved = (bits16(life_kernels.advance_with_field(goals, zeros))
+                 != bits16(goals)).any(0).any(0)
+        out["static_goals"] = (int(moved.sum()), int((moved & conv).sum()))
+    if bank.spawnless:
+        spawners = (((bits16(bank.board) | bits16(goals)) & C.SPAWNING)
+                    != 0).any(0).any(0)
+        out["spawnless"] = (int(spawners.sum()), int((spawners & conv).sum()))
+    return out
+
+
+def check_factories(dev, smi):
+    """gen_partitioned_levels for every task spec at 26x26, its default
+    iterations, FACTORY_LEVELS levels: convergence, the archive gates and
+    invariants of tests/test_procgen_distribution.py, the bank flags,
+    how many levels break them, seconds and levels/s; then two factory
+    banks through K1 + K2 against the plain step."""
+    from safelife_torch import procgen
+    from safelife_torch.procgen import batched
+    launches = collections.Counter()
+    banks = {}
+    breaks = {}
+    for task in FACTORY_TASKS:
+        t0 = time.perf_counter()
+        (bank, conv), launched = counted(
+            lambda: batched.gen_partitioned_levels(
+                task, FACTORY_LEVELS, seed=0, device=dev))
+        seconds = time.perf_counter() - t0
+        launches.update(launched)
+        conv = conv.cpu().numpy()
+        assert conv.mean() >= convergence_gate(task), (task, conv.mean())
+        board, goals = bank.board.cpu().numpy(), bank.goals.cpu().numpy()
+        mp = bank.min_performance.cpu().numpy()
+        gen = [dict(board=board[..., i], goals=goals[..., i],
+                    min_performance=float(mp[i]))
+               for i in np.flatnonzero(conv)]
+        if task.endswith("-easy"):
+            np.random.seed(77)
+            ref_levels = procgen.gen_levels(task, num_levels=EASY_REF_LEVELS)
+        else:
+            ref_levels = loader.load_levels(f"benchmarks/v1.0/{task}")
+        got = ensemble_stats(gen)
+        worst = compare_ensembles(ensemble_stats(ref_levels), got,
+                                  f"factory/{task}")
+        if "dynamic" in task or task == "navigation":
+            assert got["oscillates"].mean() > 0.5, task
+            assert not bank.static_goals and bank.simple_goals, task
+        else:
+            assert bank.static_goals, task
+        if task.endswith("spawn") or task == "navigation":
+            assert (got["spawners"] > 0).all(), task
+            assert not bank.spawnless, task
+            assert np.allclose(bank.spawn_prob.cpu().numpy()[conv], 0.3)
+        else:
+            assert bank.spawnless, task
+        if task in ("prune-still-hard", "prune-dynamic"):
+            red = ((board & C.COLOR_R) != 0) & ((board & C.ALIVE) != 0) \
+                & ((board & C.COLOR_G) == 0)
+            hard = red & ((board & C.DESTRUCTIBLE) == 0)
+            assert hard[..., conv].any() and (red & ~hard)[..., conv].any()
+        breaks[task] = flag_breaks(bank, conv)
+        banks[task] = bank
+        print(f"factory {task}: {FACTORY_LEVELS} levels in {seconds:.2f} s "
+              f"({FACTORY_LEVELS / seconds:.1f} levels/s), converged "
+              f"{conv.mean():.4f} (gate {convergence_gate(task):.3f}), "
+              f"archive gate passed (worst statistic at "
+              f"{worst:.2f} of its bound), rule {rule_of(bank)}; levels "
+              f"breaking a certified flag (all, converged): {breaks[task]}; "
+              f"K5 launches "
+              f"{launched.get('K5_advance_with_field', 0)}; on {smi}")
+    gen = torch.Generator(dev)
+    for task in FACTORY_ROLLOUTS:
+        env = BatchedSafeLifeEnv(EnvConfig(view_shape=VIEW, time_limit=8),
+                                 device=dev)
+        resets = rollout_check(env, banks[task], 4096, gen,
+                               f"factory bank {task}", steps=ROLLOUT)
+        print(f"factory bank {task} ({rule_of(banks[task])} rule): K1 + K2 "
+              f"== plain along {ROLLOUT} steps at B=4096, {resets} resets")
+    return launches, breaks
+
+
+def check_host_pipeline(dev, smi):
+    """The host pipeline on the card's host: every reference preset, and
+    the curriculum's bank on the card."""
+    from safelife_torch import procgen
+    from safelife_torch.procgen import presets
+    t0 = time.perf_counter()
+    times = {}
+    for task in sorted(k for k in presets.TASKS if not k.endswith("-tiny")):
+        t = time.perf_counter()
+        levels = procgen.gen_levels(task, HOST_LEVELS, seed=0)
+        times[task] = time.perf_counter() - t
+        assert all((lv["board"] & C.AGENT).any() for lv in levels), task
+    assert len(times) == 11
+    print(f"host gen_levels, {HOST_LEVELS} levels of each of the 11 presets:"
+          f" {time.perf_counter() - t0:.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+          + f") on the card's host")
+    name, n = HOST_BANK
+    t0 = time.perf_counter()
+    bank, launched = counted(lambda: procgen.gen_bank(name, n, seed=0,
+                                                      device=dev))
+    seconds = time.perf_counter() - t0
+    assert bank.num_levels == n and bank.board.device == dev
+    assert bank.static_goals and bank.spawnless
+    print(f"host gen_bank('{name}', {n}, seed=0, device=cuda): {seconds:.2f}"
+          f" s ({n / seconds:.1f} levels/s), launches {launched}; on {smi}")
+    return launched
+
+
+def check_supply_entry_points(dev, smi, logdir):
+    """The entry points in process: train --task, a curriculum trainer
+    whose bank switches after its first batch, new, gen-benchmarks."""
+    import contextlib
+    import io
+    from safelife_torch.__main__ import main as cli
+    from safelife_torch.training import curricula
+    launches = collections.Counter()
+    run = f"{logdir}/task-run"
+    steps = 3 * CURRICULUM_ENVS * ROLLOUT
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        _, launched = counted(lambda: cli([
+            "train", run, "--task", "append-spawn", "--num-envs",
+            str(CURRICULUM_ENVS), "--steps", str(steps)]))
+    seconds = time.perf_counter() - t
+    launches.update(launched)
+    ckpts = sorted(int(f[:-3]) for f in os.listdir(f"{run}/checkpoints"))
+    assert ckpts and ckpts[-1] >= steps, ckpts
+    with open(f"{run}/eval.yaml") as fh:
+        assert "performance" in fh.read()
+    for name in TASK_RUN_KERNELS:
+        assert launched.get(name, 0) > 0, (name, launched)
+    print(f"cli train --task append-spawn: {CURRICULUM_ENVS} envs, --steps "
+          f"{steps}, checkpoints {ckpts}, the frozen-suite eval and the "
+          f"episode video at the last: {seconds:.2f} s; launches "
+          f"{launched}")
+
+    trainer, _ = curricula.make_curriculum_trainer(
+        "append-spawn", num_envs=CURRICULUM_ENVS,
+        bank_levels=CURRICULUM_LEVELS, seed=1, eval_suite=None,
+        record_videos=False, device=dev)
+    batch = CURRICULUM_ENVS * ROLLOUT
+    trainer.bank_schedule = [(batch, f) for _, f in trainer.bank_schedule]
+    rules = []
+    t = time.perf_counter()
+    for k in range(3):
+        _, launched = counted(lambda: trainer.train((k + 1) * batch))
+        launches.update(launched)
+        rules.append(sorted(n for n in launched if n.startswith("K2")))
+    seconds = time.perf_counter() - t
+    assert rules[0] == ["K2_advance_fold[static_spawnless]"], rules
+    assert rules[1] == rules[2] == ["K2_advance_fold[static]"], rules
+    assert not trainer.bank.spawnless and trainer.bank.static_goals
+    print(f"curriculum append-spawn, first threshold moved to step {batch}: "
+          f"K2 launched as {rules[0]} in batch 1, {rules[1]} in batches 2 "
+          f"and 3 (the bank switched to append-spawn); {seconds:.2f} s")
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli(["new", "append-dynamic", "--seed", "4"])
+    text = out.getvalue()
+    assert text.count("\n") > 20
+    print(f"cli new append-dynamic --seed 4: {time.perf_counter() - t:.2f} "
+          f"s, {text.count(chr(10))} lines")
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli(["gen-benchmarks", f"{logdir}/suites", "--tasks", "append-still",
+             "--num-levels", "3", "--workers", "2"])
+    archive = out.getvalue().strip()
+    bank = loader.load_bank(archive, device=dev)
+    assert bank.num_levels == 3
+    print(f"cli gen-benchmarks --tasks append-still --num-levels 3 --workers "
+          f"2 (spawned pool): {time.perf_counter() - t:.2f} s, {archive} "
+          f"loads as a bank of {bank.num_levels} on the card")
+    return launches
+
+
+def level_supply(dev, smi):
+    """Phase 11; returns its launches (the factories', the host pipeline's
+    bank, the entry points'; not those of the comparisons) and the
+    levels that break a certified bank flag, by task."""
+    t0 = time.perf_counter()
+    check_k5_anneal_shapes(dev, smi)
+    print(f"phase 11 K5 checks: {time.perf_counter() - t0:.1f} s")
+    _build.LAUNCHES.clear()
+    launches = collections.Counter()
+    t = time.perf_counter()
+    launches.update(check_still_lifes(dev, smi))
+    print(f"phase 11 still lifes: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    factory, breaks = check_factories(dev, smi)
+    launches.update(factory)
+    print(f"phase 11 factories: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches.update(check_host_pipeline(dev, smi))
+    print(f"phase 11 host pipeline: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logdir:
+        launches.update(check_supply_entry_points(dev, smi, logdir))
+    print(f"phase 11 entry points: {time.perf_counter() - t:.1f} s")
+    for name in SUPPLY_KERNELS:
+        assert launches.get(name, 0) > 0, (name, launches)
+    print(f"phase 11 launches {dict(launches)}; levels breaking a "
+          f"certified flag {breaks}")
+    return launches
+
+
 # The kernels held to 0 spills, by library: entry-function name fragments
 # and how many instantiations the build log must show.  K1: 5 block
 # widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
@@ -2621,15 +3116,20 @@ def main():
     played = game_layer(dev, smi)
     print(f"phase 10: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    supplied = level_supply(dev, smi)
+    print(f"phase 11: {time.perf_counter() - t:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = timings[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             # The main path's launches, the training path's, the
-            # evaluation path's and the game layer's.
+            # evaluation path's, the game layer's and the level supply's.
             launches=launches[name] + trained.get(name, 0)
-            + evaluated.get(name, 0) + played.get(name, 0), max_abs_err=err,
+            + evaluated.get(name, 0) + played.get(name, 0)
+            + supplied.get(name, 0), max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             # R1's plain version is one PyTorch call (a sum).
@@ -2638,9 +3138,11 @@ def main():
         err, ms, plain_ms, bound_ms, bound_by, library_ms = script[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            # T1 also runs in the game layer's selftest and training.
-            launches=paths[path][counter] + (played.get(counter, 0)
-                                             if path == "bench" else 0),
+            # T1 also runs in the game layer's selftest and training, and
+            # in the level supply's trainers.
+            launches=paths[path][counter] + (
+                played.get(counter, 0) + supplied.get(counter, 0)
+                if path == "bench" else 0),
             max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms))

@@ -6,9 +6,7 @@ play/print/new/render) plus the training-framework commands the reference
 keeps in separate scripts (train ~ ``start-training``, bench ~
 ``benchmarking.py``).  ``train``, ``bench`` and ``selftest`` run on the
 CUDA card unless ``--device`` names another device; without CUDA they
-refuse to start unless given ``--device cpu``.  ``new``,
-``gen-benchmarks`` and ``train --task`` need procedural generation,
-ROADMAP item A6, and raise ``NotImplementedError`` until it is ported.
+refuse to start unless given ``--device cpu``.
 """
 
 import argparse
@@ -29,7 +27,7 @@ def main(argv=None):
 
     p = sub.add_parser("play", help="interactively play levels")
     p.add_argument("levels", nargs="*", default=["puzzles"],
-                   help="level files / globs")
+                   help="level files / globs / procgen yaml")
     p.add_argument("--view", type=int, default=0,
                    help="view size (0 = whole board)")
     p.add_argument("--gl", action="store_true",
@@ -39,7 +37,7 @@ def main(argv=None):
     p = sub.add_parser("print", help="print levels to the terminal")
     p.add_argument("levels", nargs="+")
 
-    p = sub.add_parser("new", help="procedurally generate a new level (A6)")
+    p = sub.add_parser("new", help="procedurally generate a new level")
     p.add_argument("params", nargs="?", default="random/append-still",
                    help="procgen yaml parameter file")
     p.add_argument("--seed", type=int, default=None)
@@ -52,8 +50,9 @@ def main(argv=None):
     p = sub.add_parser("train", help="train PPO on SafeLife levels")
     p.add_argument("logdir", help="data directory for logs + checkpoints")
     p.add_argument("--task", default=None,
-                   help="benchmark task curriculum (procgen, A6); "
-                        "overrides --levels")
+                   help="benchmark task curriculum (append-still, "
+                        "prune-still, append-spawn, prune-spawn, "
+                        "navigation); overrides --levels")
     p.add_argument("--levels", nargs="+",
                    default=["benchmarks/v1.0/append-still.npz"])
     p.add_argument("--num-envs", type=int, default=64)
@@ -72,7 +71,7 @@ def main(argv=None):
     device_option(p)
 
     p = sub.add_parser("gen-benchmarks",
-                       help="generate frozen benchmark level archives (A6)")
+                       help="generate frozen benchmark level archives")
     p.add_argument("out_dir", help="output root for the suites")
     p.add_argument("--tasks", nargs="+", default=None)
     p.add_argument("--num-levels", type=int, default=100)
@@ -108,8 +107,17 @@ def cmd_print(args):
 
 
 def cmd_new(args):
-    from .levels.iterator import procgen_unported
-    raise procgen_unported("new")
+    from .procgen import gen_game_from_file
+    game = gen_game_from_file(args.params, seed=args.seed)
+    if args.save:
+        game.save(args.save)
+        print(f"saved to {game.file_name}")
+    if args.play:
+        from .interactive.play import GameLoop
+        GameLoop(iter([game])).run()
+    else:
+        from .render import text as render_text
+        print(render_text.render_game(game))
 
 
 def cmd_render(args):
@@ -125,13 +133,21 @@ def cmd_train(args):
     import logging
 
     from . import resolve_device
-    if args.task:
-        from .levels.iterator import procgen_unported
-        raise procgen_unported(f"train --task {args.task}")
     device = resolve_device(args.device)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if args.task:
+        from .training.curricula import make_curriculum_trainer
+        trainer, total = make_curriculum_trainer(
+            args.task, impact_penalty=args.impact_penalty,
+            logdir=args.logdir, num_envs=args.num_envs, seed=args.seed,
+            view_shape=(args.view, args.view),
+            recurrent=(args.algo == "lstm"),
+            eval_every=int(args.eval_every), device=device)
+        trainer.restore_checkpoint()
+        trainer.train(min(total, int(args.steps)) if args.steps else None)
+        return
     from .training.driver import Trainer, TrainerConfig
     from .training.ppo import PPOConfig
     cfg = TrainerConfig(

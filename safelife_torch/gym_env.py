@@ -7,9 +7,7 @@ seed`` and the ``SafeLifeEnv.register()`` gym ids, ``:211-226``), built on
 the host game engine, numpy only.  The lockstep batched env
 (:class:`safelife_torch.env.env.BatchedSafeLifeEnv`) is the training path;
 this adapter exists for drop-in use with gym(nasium)-based tooling, and
-works without gymnasium too (then it has no spaces).  The default level
-iterator and ``register``'s tasks are procgen, ROADMAP item A6: they raise
-``NotImplementedError`` until it is ported.
+works without gymnasium too (then it has no spaces).
 """
 
 from typing import Optional
@@ -46,7 +44,7 @@ class SafeLifeGymEnv(_EnvBase):
                  remove_white_goals=True, render_mode="ansi"):
         if level_iterator is None:
             from .levels.iterator import safelife_loader
-            level_iterator = safelife_loader()  # default procgen (A6)
+            level_iterator = safelife_loader()  # default procgen
         self.level_iterator = level_iterator
         self.view_shape = tuple(view_shape)
         self.output_channels = tuple(output_channels)
@@ -135,8 +133,7 @@ def register(tasks=("append-still", "append-dynamic", "append-spawn",
                     "prune-spawn", "navigation", "challenge",
                     "append-still-easy", "prune-still-easy")):
     """Register ``safelife-{task}-v1`` ids with gymnasium (reference:
-    ``SafeLifeEnv.register()``, ``safelife_env.py:211-226``).  The tasks
-    are procgen presets: making one raises until A6 is ported."""
+    ``SafeLifeEnv.register()``, ``safelife_env.py:211-226``)."""
     import gymnasium
 
     def make_entry(task):

@@ -300,15 +300,16 @@ class GameLoop:
 
 
 def games_from_files(*paths):
-    """Yield SafeLifeGame objects from level files (npz archives too).
-    Procgen parameter files raise: procedural generation is ROADMAP item
-    A6, not ported yet."""
+    """Yield SafeLifeGame objects from level files (npz archives too) and
+    procgen parameter files (one fresh game each)."""
     from ..levels import loader
-    from ..levels.iterator import FILE_TYPES, procgen_unported
+    from ..levels.iterator import FILE_TYPES
 
     for fname in loader.find_files(*paths, file_types=FILE_TYPES):
-        if not fname.endswith(".npz"):
-            raise procgen_unported(f"procgen parameter file '{fname}'")
+        if fname.endswith((".yaml", ".json")):
+            from ..procgen import gen_game_from_file
+            yield gen_game_from_file(fname)
+            continue
         with np.load(fname) as data:
             if "levels" in data:
                 for rec in data["levels"]:

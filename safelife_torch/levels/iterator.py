@@ -1,21 +1,26 @@
 """Level iteration and archive utilities (port of
-``safelife_tpu.levels.iterator``, static level files only).
+``safelife_tpu.levels.iterator``).
 
 Capability parity with the generator half of ``safelife/file_finder.py``:
 ``safelife_loader`` yielding ``SafeLifeGame`` objects with repeat/shuffle
-semantics over level files, and the archive utilities ``combine_levels``
-and ``expand_levels`` used to build frozen benchmark suites.
+semantics and procedural generation in a pool of worker processes, plus
+the archive utilities (``gen_many`` / ``combine_levels`` /
+``expand_levels`` / ``gen_benchmarks``) used to build frozen benchmark
+suites.
 
 The batched path doesn't iterate games one at a time — it gathers levels
 from a device bank (``loader.build_bank``); this module serves the
 host-side surfaces (the gym adapter, interactive play, benchmark
-authoring).  Procedural generation (task names, yaml/json parameter files,
-``gen_many``, ``gen_benchmarks``) is ROADMAP item A6 and raises
-``NotImplementedError`` until it is ported.
+authoring) and streams of procgen levels.  The pool's workers are started
+with the ``spawn`` method, never ``fork``: forking a process that runs
+threads can hang the child.
 """
 
+import collections
+import concurrent.futures
 import glob
 import itertools
+import multiprocessing
 import os
 import random
 
@@ -24,83 +29,137 @@ import numpy as np
 from ..game import SafeLifeGame
 from . import loader
 
-# Level files, and the procgen parameter files that A6 will read.
+# Level files, and the procgen parameter files.
 FILE_TYPES = ("npz", "yaml", "json")
 
 
-def procgen_unported(what):
-    """The error of every entry point that needs procedural generation."""
-    return NotImplementedError(
-        f"{what}: procedural level generation is ROADMAP item A6, not "
-        f"ported yet; pass level files (npz) instead")
-
-
 def _load_entries(paths):
-    """Resolve paths to (name, level data) entries."""
+    """Resolve paths to (name, kind, payload) entries; kind is 'procgen'
+    (yaml params) or 'static' (level data)."""
+    from ..procgen import load_params
+
     if not paths:
-        raise procgen_unported("no level files given (the default procgen "
-                               "task)")
+        return [[None, "procgen", None]]
     entries = []
+    fnames = []
     for path in paths:
         try:
-            fnames = list(loader.find_files(path, file_types=FILE_TYPES))
+            fnames.extend(loader.find_files(path, file_types=FILE_TYPES))
         except FileNotFoundError:
-            raise procgen_unported(
-                f"'{path}' is no level file (a procgen task name?)") from None
-        for fname in fnames:
-            if not fname.endswith(".npz"):
-                raise procgen_unported(f"procgen parameter file '{fname}'")
+            # Not a file: maybe a procgen task name (yaml on the search
+            # path or a built-in preset).
+            entries.append([str(path), "procgen", load_params(path)])
+    for fname in fnames:
+        if fname.endswith((".yaml", ".json")):
+            entries.append([fname, "procgen", load_params(fname)])
+        else:
             with np.load(fname) as data:
                 if "levels" in data:
                     for rec in data["levels"]:
                         name = os.path.join(fname[:-4], str(rec["name"]))
-                        entries.append(
-                            (name, {k: rec[k] for k in rec.dtype.fields}))
+                        entries.append([
+                            name, "static",
+                            {k: rec[k] for k in rec.dtype.fields}])
                 else:
-                    entries.append(
-                        (fname, {k: data[k] for k in data.files}))
+                    entries.append([
+                        fname, "static", {k: data[k] for k in data.files}])
     return entries
 
 
-def _game_from_entry(name, payload):
-    game = SafeLifeGame.loaddata(payload)
+def _game_from_entry(name, kind, payload, set_seed=False):
+    if set_seed:
+        np.random.seed(int.from_bytes(os.urandom(4), "little"))
+    if kind == "procgen":
+        from ..procgen import gen_game, load_params
+        params = payload if payload is not None else load_params(None)
+        game = gen_game(**params)
+    else:
+        game = SafeLifeGame.loaddata(payload)
     game.file_name = name
     return game
 
 
-def safelife_loader(*paths, repeat="auto", shuffle=False):
-    """An iterator of SafeLifeGame instances from level files (single-level
-    npz files and ``levels`` archives, globs and directories, as
-    ``loader.find_files`` resolves them).
+def _set_rng_state(state):
+    """A worker's numpy global generator starts where this process's was."""
+    np.random.set_state(state)
 
-    ``repeat``: True repeats forever, an int that many times, False once;
-    "auto" repeats forever only a single procgen entry, so level files
-    play once.  ``shuffle`` reshuffles the levels before each pass.  The
-    paths are resolved here, so a path that is no level file raises at
-    once.
+
+def safelife_loader(*paths, repeat="auto", shuffle=False, num_workers=1,
+                    max_queue=10):
+    """Yield SafeLifeGame instances from level files / procgen params.
+
+    repeat: "auto" repeats forever iff paths resolve to a single procgen
+    parameter file; True/False/int otherwise.  With ``num_workers >= 1``
+    procgen runs asynchronously in a pool of that many spawned worker
+    processes: with one worker it continues numpy's global stream of this
+    process (so ``np.random.seed`` before the first game gives the same
+    games as ``num_workers=0``), with more each game is reseeded from
+    urandom.  The paths are resolved when the first game is asked for;
+    the pool closes when the iterator ends or is closed.
     """
     entries = _load_entries(paths)
+    if not entries:
+        return
     if repeat == "auto":
-        repeat = False
+        repeat = len(entries) == 1 and entries[0][1] == "procgen"
     if isinstance(repeat, bool):
         loop = itertools.count() if repeat else range(1)
     else:
         loop = range(repeat)
 
-    def games():
+    def entry_stream():
         for _ in loop:
             if shuffle:
                 random.shuffle(entries)
-            for entry in entries:
-                yield _game_from_entry(*entry)
-    return games()
+            yield from entries
+
+    use_pool = num_workers >= 1 and any(e[1] == "procgen" for e in entries)
+    if not use_pool:
+        for entry in entry_stream():
+            yield _game_from_entry(*entry)
+        return
+
+    # A worker that dies takes the pool down with BrokenProcessPool (a
+    # multiprocessing.Pool would wait forever for its result).
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=num_workers,
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=_set_rng_state, initargs=(np.random.get_state(),))
+    try:
+        kwargs = {"set_seed": num_workers > 1}
+        pending = collections.deque()
+        for entry in entry_stream():
+            next_game = None
+            if len(pending) >= max_queue or (pending and pending[0].done()):
+                next_game = pending.popleft().result()
+            pending.append(pool.submit(_game_from_entry, *entry, **kwargs))
+            if next_game is not None:
+                yield next_game
+        while pending:
+            yield pending.popleft().result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 # --- archive utilities ------------------------------------------------------
 
 def gen_many(param_file, out_dir, num_gen, num_workers=8, max_queue=100):
-    """Generate and save many levels as individual npz files (A6)."""
-    raise procgen_unported("gen_many")
+    """Generate and save many levels as individual npz files."""
+    out_dir = os.path.abspath(out_dir)
+    base_name = os.path.basename(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    num_digits = int(np.log10(max(num_gen, 1))) + 1
+    fmt = os.path.join(out_dir, f"{base_name}-{{:0{num_digits}d}}.npz")
+    games = safelife_loader(param_file, repeat=True,
+                            num_workers=num_workers, max_queue=max_queue)
+    try:
+        for k in range(1, num_gen + 1):
+            fname = fmt.format(k)
+            if os.path.exists(fname):
+                continue
+            next(games).save(fname)
+    finally:
+        games.close()  # stops the worker pool
 
 
 def combine_levels(directory, out_file=None):
@@ -141,5 +200,14 @@ def expand_levels(filename):
 
 
 def gen_benchmarks(out_root, tasks=None, num_levels=100, num_workers=8):
-    """Build frozen benchmark suites from procgen tasks (A6)."""
-    raise procgen_unported("gen_benchmarks")
+    """Build frozen benchmark suites (reference gen_benchmarks): generate
+    ``num_levels`` levels per task and combine each into one archive."""
+    tasks = tasks or (
+        "append-still append-dynamic append-spawn prune-dynamic "
+        "prune-spawn prune-still prune-still-hard navigation").split()
+    outputs = []
+    for name in tasks:
+        directory = os.path.join(out_root, name)
+        gen_many(name, directory, num_levels, num_workers=num_workers)
+        outputs.append(combine_levels(directory))
+    return outputs

@@ -2,10 +2,14 @@
 ``safelife_torch.__main__.main``: ``print`` and ``render`` (a level, a
 trajectory) against the JAX package's output, a tiny ``train`` on a
 synthetic archive through ``--levels`` that writes its checkpoint and
-episode video, ``bench`` of that logdir, and ``selftest``; the commands
-that need procedural generation raise naming A6 (``train``, ``bench`` and
-``selftest`` without ``--device`` on a box without CUDA:
-``tests/test_torch_imports.py``).
+episode video, ``bench`` of that logdir, and ``selftest``; and the
+procgen commands against the JAX package's under one numpy seed: ``new``
+(the printed level, the saved file), ``gen-benchmarks`` (in process and
+on the spawn pool, the archive loaded by both packages), ``train --task``
+(one tiny batch on the curriculum's first bank, which equals the JAX
+package's ``gen_bank``), and ``play`` / ``print`` of a yaml parameter file
+(``train``, ``bench`` and ``selftest`` without ``--device`` on a box
+without CUDA: ``tests/test_torch_imports.py``).
 The trainer's and the bench's time limit is cut to 12 steps for speed:
 this file tests the command line's wiring, the paths behind it have
 tests of their own.
@@ -126,14 +130,117 @@ def test_train_bench_render_selftest(tmp_path, archive, monkeypatch, capsys):
     assert "integrity OK on the CPU" in capsys.readouterr().out
 
 
+def _in_dir(monkeypatch, path):
+    os.makedirs(path, exist_ok=True)
+    monkeypatch.chdir(path)
+    (path / "levels.yaml").write_text("later_regions: append easy\n")
+
+
 @pytest.mark.parametrize("argv", [
-    ["new"], ["new", "random/append-still", "--seed", "3"],
-    ["gen-benchmarks", "out"],
-    ["train", "run", "--task", "append-still", "--device", "cpu"],
+    ["new", "append-dynamic", "--seed", "4"],
+    ["new", "append-still", "--seed", "3", "--save", "lvl.npz"],
+    ["gen-benchmarks", "out", "--tasks", "append-still", "--num-levels",
+     "3", "--workers", "0"],
+    ["gen-benchmarks", "out", "--tasks", "append-still", "--num-levels",
+     "3", "--workers", "2"],
+    ["train", "run", "--task", "append-still", "--device", "cpu",
+     "--num-envs", "4", "--steps", "16", "--view", "17"],
     ["play", "levels.yaml"], ["print", "levels.yaml"]])
-def test_procgen_commands_raise_naming_a6(tmp_path, monkeypatch, argv):
+def test_procgen_commands_match_jax(tmp_path, monkeypatch, capsys, argv):
+    from safelife_torch.levels import loader as tloader
+    from safelife_tpu import procgen as jprocgen
+    from safelife_tpu.interactive import play as jplay
+    from safelife_tpu.levels import loader as jloader
+
+    if argv[0] == "train":
+        _train_task(tmp_path, monkeypatch, argv, jprocgen)
+        return
+    played = {}
+    for name, main, play_module in (("port", cli.main, None),
+                                    ("jax", jax_cli.main, jplay)):
+        _in_dir(monkeypatch, tmp_path / name)
+        if argv[0] == "play":
+            from safelife_torch.interactive import play as tplay
+            module = tplay if play_module is None else play_module
+            monkeypatch.setattr(
+                module.GameLoop, "play",
+                lambda self, game, name=name: played.setdefault(
+                    name, game) and "QUIT")
+        run = argv
+        if name == "jax" and "--workers" in argv:
+            # The JAX package's pool forks this process: compare the
+            # archive, not the pool.
+            run = argv[:-1] + ["0"]
+        np.random.seed(21)
+        main(run)
+        played[name + "-out"] = capsys.readouterr().out
+
+    if argv[0] == "play":
+        np.testing.assert_array_equal(played["port"].board,
+                                      played["jax"].board)
+        np.testing.assert_array_equal(played["port"].goals,
+                                      played["jax"].goals)
+        return
+    if argv[0] != "gen-benchmarks":
+        assert played["port-out"].replace(
+            str(tmp_path / "port"), "<dir>") == played["jax-out"].replace(
+                str(tmp_path / "jax"), "<dir>")
+        assert played["port-out"].count("\n") > 20
+    if "--save" in argv:
+        with np.load(tmp_path / "port" / "lvl.npz") as got, \
+                np.load(tmp_path / "jax" / "lvl.npz") as want:
+            for key in want.files:
+                if key != "class":  # each package's own class name
+                    np.testing.assert_array_equal(got[key], want[key])
+    if argv[0] == "gen-benchmarks":
+        archive = str(tmp_path / "port" / "out" / "append-still.npz")
+        assert played["port-out"].strip() == os.path.join(
+            "out", "append-still.npz")
+        got = tloader.load_levels(archive)
+        assert len(got) == 3
+        want = jloader.load_levels(archive)
+        for g, w in zip(got, want):
+            for key in w:
+                np.testing.assert_array_equal(g[key], w[key])
+        if argv[-1] == "0":  # in process: the JAX package's own levels
+            jax_archive = str(tmp_path / "jax" / "out" / "append-still.npz")
+            for g, w in zip(got, jloader.load_levels(jax_archive)):
+                np.testing.assert_array_equal(g["board"], w["board"])
+                np.testing.assert_array_equal(g["goals"], w["goals"])
+
+
+def _train_task(tmp_path, monkeypatch, argv, jprocgen):
+    """``train --task``: one tiny batch on the curriculum's first bank (4
+    levels), evaluated on the frozen suite at its end."""
+    from safelife_torch.training import curricula
+
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "levels.yaml").write_text("{}\n")
-    with pytest.raises(NotImplementedError, match="A6"):
+    trainers = []
+    make = curricula.make_curriculum_trainer
+
+    def tracked(*args, **kw):
+        trainer, total = make(*args, bank_levels=4, time_limit=TIME_LIMIT,
+                              record_videos=False,
+                              eval_side_effect_samples=4, **kw)
+        trainers.append(trainer)
+        return trainer, total
+
+    monkeypatch.setattr(curricula, "make_curriculum_trainer", tracked)
+    try:
         cli.main(argv)
-    assert not os.path.exists(tmp_path / "run")
+    finally:
+        for t in trainers:
+            if t.writer:
+                t.writer.close()  # leave no event-file thread behind
+    trainer, = trainers
+    want = jprocgen.gen_bank("append-still-easy", num_levels=4, seed=0)
+    got = trainer.bank.to_numpy()
+    for field in ("board", "goals", "agent_row", "agent_col",
+                  "min_performance", "possible0"):
+        np.testing.assert_array_equal(
+            got[field], np.asarray(getattr(want, field)), err_msg=field)
+    assert trainer.cfg.eval_suite == "append-still"
+    assert trainer.global_step() >= 16
+    assert os.listdir(tmp_path / "run" / "checkpoints")
+    with open(tmp_path / "run" / "eval.yaml") as fh:
+        assert "performance" in fh.read()

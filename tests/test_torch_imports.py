@@ -35,8 +35,15 @@ import chip_smoke
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED
                 and sys.modules[m] is not None)
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
+
+# Modules the import check must reach (the level supply among them).
+REQUIRED = ("safelife_torch.procgen", "safelife_torch.procgen.batched",
+            "safelife_torch.procgen.generate", "safelife_torch.procgen.native",
+            "safelife_torch.procgen.presets",
+            "safelife_torch.levels.device_bank",
+            "safelife_torch.training.curricula")
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -45,7 +52,9 @@ def test_port_and_chip_smoke_import_without_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 50, proc.stdout
+    names = proc.stdout.split()
+    assert len(names) >= 57, proc.stdout
+    assert set(REQUIRED) <= set(names), set(REQUIRED) - set(names)
 
 
 def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch, tmp_path):
