@@ -124,10 +124,32 @@ Phases, each an assertion that ends the run on failure:
    ``train --task append-spawn``, a curriculum trainer whose bank switches
    after its first batch (K2's rule changes in the counts), ``new`` and
    ``gen-benchmarks`` on its spawned pool;
-12. one JSON line listing the kernels (the launches of phases 5, 8, 9, 10
-   and 11), and last the result line; before it the run fails if the
-   build log shows a K1-K8, S3-S5, R1 or view kernel instantiation that
-   spills.
+12. data-parallel training (``safelife_torch.parallel``) at the training
+   width (``PPOConfig()``, view 33x33, append-still, 4096 environments in
+   all): K1 + K2 and K1 + K3 with the spawn draw's counter at environment
+   3001 against their plain versions (append-spawn, the stress bank, the
+   general-pair bank); ``Trainer`` with ``PPOConfig(data_shards=2)`` in
+   one process for 3 batches (finite losses, K1, K2 and UNPACK launched)
+   and the learner's env-steps/s beside ``data_shards=1``;
+   ``distributed.initialize()`` through the SAFELIFE_* variables on NCCL
+   at world size 1, ``Trainer(mesh=make_global_mesh())`` for 3 batches
+   with parameters bit-equal to the same-seed Trainer without a mesh,
+   ``collective_stats`` of one update (all-reduce bytes at most 1.5x the
+   parameters', every other collective under 100 kB) and the learner's
+   env-steps/s with and without the mesh; two gloo ranks on the one card
+   as subprocesses of this script (``--rank``), 2048 environments each:
+   parameters bit-equal across ranks after 3 batches, each rank's
+   rollout of append-still and append-spawn with injected actions bit for
+   bit its shard of the one-process run, the all-reduced gradient within
+   ``GRAD_RTOL`` of the one-process gradient, all-reduce times at 1x and
+   8x the gradient's bytes; ``advance_board_sharded`` at world size 1
+   and on the two ranks, (64, 32, 8) soups with spawners and (512, 512,
+   64) boards, 4 steps, bit-equal to K5 on the whole board; and
+   ``PhaseTimer`` and ``trace`` around one batch;
+13. one JSON line listing the kernels (the launches of phases 5, 8, 9, 10,
+   11 and 12, both ranks' included), and last the result line; before it
+   the run fails if the build log shows a K1-K8, S3-S5, R1 or view kernel
+   instantiation that spills.
 
 Exits nonzero, printing no result, when no CUDA device is present.
 """
@@ -177,6 +199,9 @@ RULE_BANKS = {"static_spawnless": "append-still", "static": "append-spawn",
 # (NVIDIA's data sheet, H100 SXM: 67 T/s, an FMA counted as two): the
 # operation term of every bound, so that no bound exceeds the least time.
 PEAK_OPS = 67e12
+# The dense bf16 tensor-core peak (the same data sheet), against which
+# phase 12 states the learner's utilization.
+PEAK_BF16_FLOPS = 989e12
 # INT32 results an SM's ALU issues per clock on Hopper.  Times the SM
 # count and the highest SM clock (int_rate) it gives an estimate of the
 # time the counted integer operations take, printed beside each bound but
@@ -1463,12 +1488,6 @@ F32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=3e-2, atol=2e-2)
 
 
-def core_env(env):
-    while hasattr(env, "env"):
-        env = env.env
-    return env
-
-
 def step_fields(state, ts):
     """The step's outputs (obs, rewards after the wrappers, done, the
     side-effect count, episode stats), the wrappers' extra state and the
@@ -1498,15 +1517,15 @@ def check_training_env(dev, steps=ROLLOUT):
         for b in (4096, 1001, 7):
             kern = driver.make_training_env(cfg, dev)
             plain = driver.make_training_env(cfg, dev)
-            core_env(plain).config = dataclasses.replace(
-                core_env(plain).config, use_kernels=False)
-            assert core_env(kern).uses_kernels()
-            assert not core_env(plain).uses_kernels()
+            W.unwrap_env(plain).config = dataclasses.replace(
+                W.unwrap_env(plain).config, use_kernels=False)
+            assert W.unwrap_env(kern).uses_kernels()
+            assert not W.unwrap_env(plain).uses_kernels()
             gen = torch.Generator(device=dev)
             gen.manual_seed(7)
             actions = torch.randint(0, 9, (steps, b), generator=gen,
                                     device=dev)
-            fresh = core_env(kern).sample_fresh_levels(bank, b, gen)
+            fresh = W.unwrap_env(kern).sample_fresh_levels(bank, b, gen)
             states = [env.reset_all(bank, b, gen.manual_seed(8))
                       for env in (kern, plain)]
             gens = [torch.Generator(device=dev).manual_seed(9)
@@ -2192,7 +2211,7 @@ class KernelDraws(W.Wrapper):
     path does the same)."""
 
     def step(self, state, bank, action, generator=None, **kw):
-        core = core_env(self.env)
+        core = W.unwrap_env(self.env)
         b = action.shape[0]
         fresh = core.fresh_levels(bank, torch.randint(
             0, bank.num_levels, (b,), generator=generator,
@@ -2208,8 +2227,8 @@ def plain_stack(cfg, dev):
     """make_training_env on the plain step (the core config's
     use_kernels=False) drawing the kernels' spawns."""
     env = driver.make_training_env(cfg, dev)
-    core_env(env).config = dataclasses.replace(core_env(env).config,
-                                               use_kernels=False)
+    core = W.unwrap_env(env)
+    core.config = dataclasses.replace(core.config, use_kernels=False)
     return KernelDraws(env)
 
 
@@ -2228,7 +2247,7 @@ def check_small_batches(dev, steps=ROLLOUT):
         for b in SMALL_BATCHES:
             kern = driver.make_training_env(cfg, dev)
             plain = plain_stack(cfg, dev)
-            assert core_env(kern).uses_kernels()
+            assert W.unwrap_env(kern).uses_kernels()
             actions = torch.randint(0, 9, (steps, b), device=dev,
                                     generator=torch.Generator(dev)
                                     .manual_seed(7))
@@ -2977,6 +2996,552 @@ def level_supply(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: data-parallel training on torch.distributed.
+# ---------------------------------------------------------------------------
+
+# The whole batch of the sharded runs (two ranks hold 2048 each), their
+# batches, and the halo exchange's boards and steps.
+SHARD_ENVS = 4096
+SHARD_BATCHES = 3
+HALO_BOARDS = ((64, 32, 8), (512, 512, 64))
+HALO_STEPS = 4
+# Each rank's all-reduced gradient against the one-process gradient of the
+# same minibatch, a float32 net with TF32 off: the ranks' rows are summed
+# in another order, by weight-gradient algorithms cuDNN picks per batch
+# size, over 10^5-10^6 terms an element that largely cancel.  Bound on
+# max |diff| / max |gradient| per tensor (7.78e-5 on both ranks in every
+# run so far; a wrong average or wrong rows is off by order 1).
+GRAD_RTOL = 2e-4
+# The two-rank run's deadline (its group's timeout is below it).
+RANKS_TIMEOUT_S = 600
+RANK_GROUP_TIMEOUT_S = 300
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_trainer(dev, ppo_cfg, mesh=None, net=None):
+    """Trainer at the training width: append-still, view 33x33,
+    SHARD_ENVS environments in all, no files."""
+    return driver.Trainer(
+        driver.TrainerConfig(num_envs=SHARD_ENVS, view_shape=TRAIN_VIEW,
+                             report_every=SHARD_ENVS * ROLLOUT,
+                             save_every=10**9, record_videos=False),
+        ppo_cfg, level_paths=("benchmarks/v1.0/append-still",), device=dev,
+        mesh=mesh, net=net)
+
+
+def shard_steps():
+    # Two batches leave the global step short of this; the third passes.
+    return (SHARD_BATCHES - 1) * ROLLOUT * SHARD_ENVS + 1
+
+
+def learner_rate(trainer, batches=3):
+    """Seconds a train_batch (after one to warm up), and the whole batch's
+    env-steps/s."""
+    ppo_, ts, gen = trainer.ppo, trainer.train_state, trainer.generator
+    state, obs = trainer.env_state, trainer.obs
+    state, obs, _ = ppo_.train_batch(ts, state, obs, trainer.bank, gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(batches):
+        state, obs, _ = ppo_.train_batch(ts, state, obs, trainer.bank, gen)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / batches
+    trainer.env_state, trainer.obs = state, obs
+    return wall, SHARD_ENVS * ROLLOUT / wall
+
+
+def check_trained(trainer, reports, launched, what):
+    assert trainer.train_state.update_step == SHARD_BATCHES, what
+    assert len(reports) == SHARD_BATCHES, what
+    for m in reports:
+        for k in ("policy_loss", "value_loss", "entropy", "pseudo_entropy",
+                  "mean_reward"):
+            assert np.isfinite(m[k]).all(), (what, k, m[k])
+    for name in ("K1_action", "K2_advance_fold[static_spawnless]",
+                 "S4_view_unpack"):
+        assert launched.get(name, 0) >= SHARD_BATCHES * ROLLOUT, (
+            what, name, launched)
+
+
+def check_k2_k3_offset(dev):
+    """K1 + K2 (fold and view) and K1 + K3 with the spawn draw's counter
+    starting at a nonzero environment, against their plain versions at
+    the same offset, on the three drawing rules; and at offset 0."""
+    gen = torch.Generator(device=dev)
+    for suite in ("append-spawn", "stress", "general"):
+        bank = load_bank(suite, dev)
+        for auto_reset in (True, False):
+            env = BatchedSafeLifeEnv(EnvConfig(
+                time_limit=6, view_shape=TRAIN_VIEW, auto_reset=auto_reset),
+                device=dev)
+            gen.manual_seed(3)
+            b = 1001
+            state = env.reset_all(bank, b, gen)
+            fresh = env.sample_fresh_levels(bank, b, gen)
+            for step in range(6):
+                action = torch.randint(0, 9, (b,), generator=gen, device=dev,
+                                       dtype=torch.int32)
+                kw = env.fused_inputs(state, bank, action,
+                                      fresh[1] if auto_reset else None,
+                                      env.step_seed(gen))
+                for env0 in (0, 3001):
+                    kw["env0"] = env0
+                    assert_bit_equal(
+                        esk.fused_step(**kw), esk.fused_step_plain(**kw),
+                        f"K1+K2/K3 {suite} env0={env0} step {step}")
+                state, _ = env.step(state, bank, action, gen,
+                                    fresh_levels=fresh)
+        print(f"K2/K3 with the draw's first environment at 0 and at 3001 == "
+              f"plain: {suite} ({rule_of(bank)} rule) B=1001, fold and no "
+              f"reset, 6 steps")
+
+
+def one_process_shards(dev, smi):
+    """Step 1: data_shards=2 in one process; returns its launches."""
+    trainer = shard_trainer(dev, ppo.PPOConfig(data_shards=2))
+    reports = []
+    t = time.perf_counter()
+    _, launched = counted(lambda: trainer.train(
+        total_steps=shard_steps(),
+        progress_fn=lambda s, m: reports.append(m)))
+    seconds = time.perf_counter() - t
+    check_trained(trainer, reports, launched, "data_shards=2")
+    rates = {}
+    for shards in (1, 2):
+        rates[shards] = learner_rate(shard_trainer(
+            dev, ppo.PPOConfig(data_shards=shards)))
+    print(f"trainer, PPOConfig(data_shards=2) in one process: append-still, "
+          f"{SHARD_ENVS} envs, view {TRAIN_VIEW}, {SHARD_BATCHES} batches in "
+          f"{seconds:.2f} s, last policy_loss "
+          f"{float(reports[-1]['policy_loss']):.5g}; launches {launched}")
+    for shards, (wall, rate) in rates.items():
+        print(f"learner env-steps/s at data_shards={shards}, {SHARD_ENVS} "
+              f"envs: {rate:.0f} ({wall * 1e3:.2f} ms a batch) on {smi}")
+    return launched
+
+
+def update_stats(trainer, mesh):
+    """collective_stats of one update: one Adam step on one minibatch of
+    PPOConfig()'s size (a quarter of the environments)."""
+    cfg = dataclasses.replace(trainer.ppo_cfg, epochs_per_batch=1,
+                              num_minibatches=1)
+    learner = ppo.PPO(cfg, trainer.env, mesh=mesh)
+    _, _, traj, _ = ppo.rollout(cfg, trainer.net, trainer.env, trainer.bank,
+                                trainer.env_state, trainer.obs,
+                                trainer.generator)
+    n = trainer.local_envs // trainer.ppo_cfg.num_minibatches
+    traj = ppo.Trajectory(**{f.name: getattr(traj, f.name)[:, :n]
+                             for f in dataclasses.fields(traj)})
+    ret, adv = ppo.compute_gae(cfg, traj.reward, traj.done, traj.value)
+    from safelife_torch.parallel import distributed
+    stats = distributed.collective_stats(
+        lambda: learner.update(trainer.train_state, traj, ret, adv,
+                               trainer.generator), mesh)
+    param_bytes = sum(4 * p.numel() for p in trainer.train_state.optimizer
+                      .params)
+    return stats, param_bytes
+
+
+def halo_check(dev, mesh):
+    """advance_board_sharded for HALO_STEPS steps on each of HALO_BOARDS
+    (soups with spawners, a spawn field of rate 0.2) against K5 on the
+    whole board; returns the sharded runs' launches and seconds."""
+    from safelife_torch.parallel import halo
+    launches, seconds = collections.Counter(), {}
+    for shape in HALO_BOARDS:
+        board = torch.as_tensor(soup(np.random.default_rng(shape[0]), shape,
+                                     SPAWNLESS_FLAGS + (C.SPAWNING,)),
+                                device=dev)
+        spawn = torch.rand(shape, generator=torch.Generator(dev).manual_seed(
+            shape[1]), device=dev) < 0.2
+        whole = board
+        for _ in range(HALO_STEPS):
+            whole = life_kernels.advance_with_field(whole, spawn)
+        block, field = halo.shard_rows(board, mesh), halo.shard_rows(spawn,
+                                                                     mesh)
+
+        def run(block=block):
+            for _ in range(HALO_STEPS):
+                block = halo.advance_board_sharded(block, field, mesh)
+            return block
+
+        t = time.perf_counter()
+        block, launched = counted(run)
+        seconds[shape] = time.perf_counter() - t
+        assert launched == {"K5_advance_with_field": HALO_STEPS}, launched
+        launches.update(launched)
+        assert_bit_equal([halo.gather_rows(block, mesh)], [whole],
+                         f"advance_board_sharded {shape} on "
+                         f"{mesh.world_size} ranks")
+    return launches, seconds
+
+
+def nccl_world_one(dev, smi):
+    """Step 2 and step 4 at world size 1: initialize() on NCCL through the
+    SAFELIFE_* variables, Trainer(mesh=) against the same-seed Trainer,
+    collective_stats, the learner with and without the mesh, the halo
+    exchange; returns the mesh trainer's and the halo's launches."""
+    import torch.distributed as dist
+    from safelife_torch.parallel import distributed
+    os.environ.update(SAFELIFE_COORDINATOR=f"127.0.0.1:{free_port()}",
+                      SAFELIFE_NUM_PROCS="1", SAFELIFE_PROC_ID="0")
+    flags = torch.backends.cudnn.deterministic
+    try:
+        t = time.perf_counter()
+        assert distributed.initialize(timeout=RANK_GROUP_TIMEOUT_S)
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh = distributed.make_global_mesh()
+        assert (mesh.world_size, mesh.device) == (1, dev), mesh
+        print(f"initialize(): NCCL, world size 1, {mesh.device}, "
+              f"{time.perf_counter() - t:.2f} s")
+        # Equal inputs must give equal bits: deterministic convolutions.
+        torch.backends.cudnn.deterministic = True
+        plain = shard_trainer(dev, ppo.PPOConfig())
+        plain.train(total_steps=shard_steps())
+        meshed = shard_trainer(dev, ppo.PPOConfig(), mesh=mesh)
+        reports = []
+        _, launched = counted(lambda: meshed.train(
+            total_steps=shard_steps(),
+            progress_fn=lambda s, m: reports.append(m)))
+        check_trained(meshed, reports, launched, "mesh of 1")
+        want = plain.net.state_dict()
+        for k, v in meshed.net.state_dict().items():
+            assert_bit_equal([v], [want[k]], f"mesh of 1 against no mesh {k}")
+        assert meshed.train_state.spe.item() == plain.train_state.spe.item()
+        assert meshed.global_step() == plain.global_step()
+        print(f"Trainer(mesh=make_global_mesh()) on NCCL at world size 1: "
+              f"{SHARD_BATCHES} batches at {SHARD_ENVS} envs, parameters and "
+              f"spe bit-equal to the same-seed Trainer without a mesh "
+              f"(cuDNN deterministic); launches {launched}")
+        torch.backends.cudnn.deterministic = flags
+
+        stats, param_bytes = update_stats(meshed, mesh)
+        moved = stats["collective_bytes"]
+        other = {k: v for k, v in moved.items() if k != "all-reduce"}
+        assert 0 < moved.get("all-reduce", 0) <= 1.5 * param_bytes, moved
+        assert sum(other.values()) < 100_000, moved
+        print(f"collective_stats of one update (one Adam step on "
+              f"{meshed.local_envs // 4} envs x {ROLLOUT} steps), NCCL world "
+              f"size 1: {moved} bytes (parameters {param_bytes} bytes), "
+              f"{stats['flops']:.4g} FLOPs (FlopCounterMode)")
+
+        for name, trainer in (("without", plain), ("with", meshed)):
+            wall, rate = learner_rate(trainer)
+            print(f"learner env-steps/s {name} the NCCL mesh of 1, "
+                  f"{SHARD_ENVS} envs: {rate:.0f} ({wall * 1e3:.2f} ms a "
+                  f"batch) on {smi}")
+        for name, trainer in (("without", plain), ("with", meshed)):
+            wall, rate = learner_rate(trainer)
+            print(f"learner env-steps/s {name} the NCCL mesh of 1, again: "
+                  f"{rate:.0f} ({wall * 1e3:.2f} ms a batch)")
+
+        halo_launched, seconds = halo_check(dev, mesh)
+        print(f"advance_board_sharded, NCCL world size 1 (the block's own "
+              f"rows close the torus), {HALO_STEPS} steps == K5 on the whole "
+              f"board: " + ", ".join(f"{s} {t * 1e3:.2f} ms"
+                                     for s, t in seconds.items()))
+        launched = collections.Counter(launched)
+        launched.update(halo_launched)
+        return launched
+    finally:
+        torch.backends.cudnn.deterministic = flags
+        distributed.shutdown()
+        for k in ("SAFELIFE_COORDINATOR", "SAFELIFE_NUM_PROCS",
+                  "SAFELIFE_PROC_ID"):
+            os.environ.pop(k, None)
+
+
+def rank_trajectories(dev, mesh, suite, net):
+    """Rollouts of SHARD_ENVS environments (one process) and of this rank's
+    shard, the same injected actions and seeds, time limit 8 (every
+    environment resets): the env's side bit for bit, the net's outputs
+    within F32_TOL; returns the whole run's trajectory and its resets."""
+    bank = load_bank(suite, dev)
+    cfg = driver.TrainerConfig(view_shape=TRAIN_VIEW, time_limit=8)
+    learner = ppo.PPOConfig(data_shards=mesh.world_size)
+    actions = torch.randint(0, 9, (ROLLOUT, SHARD_ENVS),
+                            generator=torch.Generator(dev).manual_seed(5),
+                            device=dev)
+    runs = []
+    for shard in ((0, 1), (mesh.rank, mesh.world_size)):
+        env = driver.make_training_env(cfg, dev, shard=shard)
+        b = SHARD_ENVS // shard[1]
+        first = shard[0] * b
+        gen = torch.Generator(dev).manual_seed(2)
+        state = env.reset_all(bank, b, gen)
+        _, obs, traj, eps = ppo.rollout(
+            learner, net, env, bank, state, env.observe(state), gen,
+            actions=actions[:, first:first + b])
+        runs.append((traj, obs, eps))
+    (whole, wobs, weps), (part, obs, eps) = runs
+    rows = mesh.rows(SHARD_ENVS)
+    cut = lambda x: x[:, rows]  # noqa: E731
+    assert_bit_equal([part.obs, part.reward, part.done, obs],
+                     [cut(whole.obs), cut(whole.reward), cut(whole.done),
+                      wobs[rows]], f"rank {mesh.rank} rollout {suite}")
+    assert_bit_equal(list(eps.values()), [cut(v) for v in weps.values()],
+                     f"rank {mesh.rank} episode stats {suite}")
+    for name in ("old_pi", "value"):
+        torch.testing.assert_close(getattr(part, name),
+                                   cut(getattr(whole, name)), **F32_TOL)
+    return whole, int(whole.done.sum())
+
+
+def rank_gradient(dev, mesh, whole, net):
+    """This rank's all-reduced gradient of its rows of minibatch 0 against
+    the one-process gradient of the whole minibatch; returns the largest
+    max |diff| / max |gradient| over the tensors."""
+    cfg = ppo.PPOConfig(data_shards=mesh.world_size)
+    local = SHARD_ENVS // mesh.world_size
+    mb = local // cfg.num_minibatches
+    ret, adv = ppo.compute_gae(cfg, whole.reward, whole.done, whole.value)
+    data = (whole.obs, whole.action, whole.old_pi, whole.value[:-1], ret, adv)
+    perms = torch.stack([torch.randperm(
+        local, generator=torch.Generator(dev).manual_seed(s), device=dev)
+        for s in range(mesh.world_size)])
+    spe = torch.nn.Parameter(torch.ones((), device=dev))
+    params = list(net.parameters()) + [spe]
+    grads = []
+    for rows, m in ((ppo.minibatch_rows(perms, 0, mb), None),
+                    (perms[mesh.rank, :mb] + mesh.rank * local, mesh)):
+        for p in params:
+            p.grad = None
+        loss, _ = ppo.ppo_loss(cfg, net, spe, *(x[:, rows] for x in data),
+                               mesh=m)
+        loss.backward()
+        if m is not None:
+            m.average_gradients(params)
+        grads.append([p.grad.clone() for p in params])
+    return max((g - w).abs().max().item() / w.abs().max().item()
+               for g, w in zip(*grads[::-1]))
+
+
+def time_allreduce(mesh, n, iters=8):
+    """ms of one all-reduce of ``n`` float32 on the card, chained."""
+    x = torch.ones(n, device=mesh.device)
+    mesh.all_reduce(x)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        mesh.all_reduce(x)
+        x /= mesh.world_size
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def rank_work(dev, mesh):
+    """One rank of step 3 and step 4: Trainer(mesh=) on append-still, the
+    rollouts of append-still and append-spawn against the one-process
+    run, the all-reduced gradient, all-reduce times, the halo exchange;
+    returns the rank's results (its launches among them)."""
+    out = {"rank": mesh.rank}
+    trainer = shard_trainer(dev, ppo.PPOConfig(data_shards=mesh.world_size),
+                            mesh=mesh)
+    reports = []
+    t = time.perf_counter()
+    _, launched = counted(lambda: trainer.train(
+        total_steps=shard_steps(),
+        progress_fn=lambda s, m: reports.append(m)))
+    out["train_s"] = time.perf_counter() - t
+    check_trained(trainer, reports, launched, f"rank {mesh.rank}")
+    out["launches"] = collections.Counter(launched)
+    out["params"] = {k: v.cpu() for k, v in trainer.net.state_dict().items()}
+    out["spe"] = trainer.train_state.spe.item()
+    out["global_step"] = trainer.global_step()
+    out["local_envs"] = W.unwrap(trainer.env_state).board.shape[-1]
+    out["policy_loss"] = float(reports[-1]["policy_loss"])
+    out["batch_s"], _ = learner_rate(trainer, batches=2)
+    n_params = sum(p.numel() for p in trainer.train_state.optimizer.params)
+    del trainer
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        net = model.SafeLifeCNN(view_shape=TRAIN_VIEW,
+                                compute_dtype=torch.float32,
+                                generator=torch.Generator().manual_seed(0)
+                                ).to(dev)
+        for suite in ("append-still", "append-spawn"):
+            whole, out[f"resets {suite}"] = rank_trajectories(dev, mesh,
+                                                              suite, net)
+            assert out[f"resets {suite}"] > 0, suite
+            if suite == "append-still":
+                out["grad_rel_err"] = rank_gradient(dev, mesh, whole, net)
+            del whole
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    out["allreduce_ms"] = {k: time_allreduce(mesh, k * n_params)
+                           for k in (1, 8)}
+    out["n_params"] = n_params
+    halo_launched, out["halo_s"] = halo_check(dev, mesh)
+    out["launches"].update(halo_launched)
+    out["collective_bytes"] = dict(mesh.collective_bytes)
+    return out
+
+
+def rank_main(outdir):
+    """A rank of the two-rank run (``chip_smoke.py --rank <outdir>``, the
+    SAFELIFE_* variables set): gloo on the one card."""
+    from safelife_torch.parallel import distributed
+    dev = torch.device("cuda", 0)
+    _build.build_all()  # the parent built them: this loads
+    assert distributed.initialize(backend="gloo", device=dev,
+                                  timeout=RANK_GROUP_TIMEOUT_S)
+    try:
+        mesh = distributed.make_global_mesh(device=dev)
+        out = rank_work(dev, mesh)
+        torch.save(out, os.path.join(outdir, f"rank{mesh.rank}.pt"))
+        mesh.barrier()
+    finally:
+        distributed.shutdown()
+
+
+def two_ranks(dev, smi):
+    """Step 3 and step 4 on two gloo ranks sharing the card, as
+    subprocesses of this script; returns their launches."""
+    with tempfile.TemporaryDirectory() as outdir:
+        env = dict(os.environ, SAFELIFE_COORDINATOR=f"127.0.0.1:{free_port()}",
+                   SAFELIFE_NUM_PROCS="2")
+        procs = []
+        t = time.perf_counter()
+        try:
+            for r in range(2):
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank",
+                     outdir], env=dict(env, SAFELIFE_PROC_ID=str(r)),
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            logs = [p.communicate(timeout=RANKS_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        seconds = time.perf_counter() - t
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+        r0, r1 = (torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                             weights_only=False) for r in range(2))
+    for k, v in r0["params"].items():
+        assert_bit_equal([r1["params"][k]], [v], f"two ranks' parameter {k}")
+    assert r0["spe"] == r1["spe"]
+    for r in (r0, r1):
+        assert r["global_step"] == SHARD_BATCHES * ROLLOUT * SHARD_ENVS
+        assert r["local_envs"] == SHARD_ENVS // 2
+        assert r["grad_rel_err"] <= GRAD_RTOL, r["grad_rel_err"]
+        moved = r["collective_bytes"]
+        print(f"rank {r['rank']} of 2 (gloo, one card): {SHARD_BATCHES} "
+              f"batches of {r['local_envs']} envs in {r['train_s']:.2f} s "
+              f"with the integrity checks; {r['batch_s'] * 1e3:.2f} ms a "
+              f"batch ({SHARD_ENVS * ROLLOUT / r['batch_s']:.0f} env-steps/s "
+              f"of the whole batch); rollouts of append-still and "
+              f"append-spawn == its shard of one process bit for bit "
+              f"({r['resets append-still']} / {r['resets append-spawn']} "
+              f"resets in the whole run), net outputs within {F32_TOL}; "
+              f"all-reduced gradient max |diff| / max |g| "
+              f"{r['grad_rel_err']:.3g} (bound {GRAD_RTOL}); all-reduce of "
+              f"{r['n_params']} float32 {r['allreduce_ms'][1]:.3f} ms, 8x "
+              f"{r['allreduce_ms'][8]:.3f} ms; halo "
+              + ", ".join(f"{s} {t * 1e3:.2f} ms"
+                          for s, t in r["halo_s"].items())
+              + f"; bytes moved {moved}; launches {dict(r['launches'])}")
+    print(f"two gloo ranks on one card: parameters and spe bit-equal after "
+          f"{SHARD_BATCHES} batches, last policy_loss {r0['policy_loss']:.5g};"
+          f" {seconds:.1f} s with the processes' start on {smi}")
+    return r0["launches"] + r1["launches"]
+
+
+def profiled_batch(dev, smi):
+    """Step 5: PhaseTimer and trace around one batch at SHARD_ENVS; then
+    one more update timed without the profiler, its utilization of the
+    card's dense bf16 peak, and ``dp_efficiency_model`` at that
+    utilization."""
+    from safelife_torch.parallel import distributed
+    from safelife_torch.utils import profiling
+    trainer = shard_trainer(dev, ppo.PPOConfig(data_shards=2))
+    learner, ts, gen = trainer.ppo, trainer.train_state, trainer.generator
+    from safelife_torch.parallel import mesh as pmesh
+    stats, param_bytes = update_stats(trainer, pmesh.make_mesh(device=dev))
+    timer = profiling.PhaseTimer()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir) as prof:
+            with timer.phase("rollout", block=True) as out:
+                state, obs, traj, _ = ppo.rollout(
+                    learner.cfg, ts.net, learner.env, trainer.bank,
+                    trainer.env_state, trainer.obs, gen)
+                out.append(traj.obs)
+            with timer.phase("gae", block=True) as out:
+                ret, adv = ppo.compute_gae(learner.cfg, traj.reward,
+                                           traj.done, traj.value)
+                out.append(adv)
+            with timer.phase("update", block=True) as out:
+                learner.update(ts, traj, ret, adv, gen)
+                out.append(ts.spe)
+        files = [f for f in os.listdir(logdir)
+                 if f.endswith(".pt.trace.json")]
+        assert len(files) == 1, files
+        size = os.path.getsize(os.path.join(logdir, files[0]))
+    summary = timer.summary()
+    assert list(summary) == ["gae", "rollout", "update"], summary
+    wall_ms = sum(v["total_s"] for v in summary.values()) * 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    assert busy_ms > 0, "the trace holds no device time"
+    print(f"PhaseTimer over one batch at {SHARD_ENVS} envs (data_shards=2), "
+          f"profiled: {summary}; trace {files[0]} {size} bytes; device busy "
+          f"{busy_ms:.2f} ms of {wall_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.1%}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    learner.update(ts, traj, ret, adv, gen)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t
+    adam_steps = learner.cfg.epochs_per_batch * learner.cfg.num_minibatches
+    util = adam_steps * stats["flops"] / update_s / PEAK_BF16_FLOPS
+    model = {n: distributed.dp_efficiency_model(
+        n, stats["flops"], param_bytes, util=util) for n in (2, 8)}
+    print(f"update of {adam_steps} Adam steps at {stats['flops']:.4g} FLOPs "
+          f"each: {update_s * 1e3:.2f} ms, {util:.4f} of the dense bf16 peak "
+          f"{PEAK_BF16_FLOPS:.4g} FLOP/s on {smi}; dp_efficiency_model at "
+          f"that utilization, {param_bytes} gradient bytes an Adam step and "
+          f"the H100 SXM's 450 GB/s of NVLink: {model} (a model, not a "
+          f"measurement)")
+
+
+def data_parallel(dev, smi):
+    """Phase 12; returns its launches (the trainers' runs and the sharded
+    halo steps, both ranks' included; not the comparisons')."""
+    t = time.perf_counter()
+    check_k2_k3_offset(dev)
+    print(f"phase 12 K2/K3 offsets: {time.perf_counter() - t:.1f} s")
+    launches = collections.Counter()
+    for step, fn in (("one process", one_process_shards),
+                     ("NCCL world size 1", nccl_world_one),
+                     ("two gloo ranks", two_ranks)):
+        t = time.perf_counter()
+        launches.update(fn(dev, smi))
+        print(f"phase 12 {step}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    profiled_batch(dev, smi)
+    print(f"phase 12 profiled batch: {time.perf_counter() - t:.1f} s")
+    for name in ("K1_action", "K2_advance_fold[static_spawnless]",
+                 "S4_view_unpack", "K5_advance_with_field",
+                 "K4_advance_spawnless", "T1_philox_words"):
+        assert launches.get(name, 0) > 0, (name, launches)
+    print(f"phase 12 launches {dict(launches)}")
+    return launches
+
+
 # The kernels held to 0 spills, by library: entry-function name fragments
 # and how many instantiations the build log must show.  K1: 5 block
 # widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
@@ -3014,6 +3579,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         sys.exit(1)
+    if sys.argv[1:2] == ["--rank"]:  # a rank of phase 12's two-rank run
+        rank_main(sys.argv[2])
+        return
     dev = torch.device("cuda", torch.cuda.current_device())
 
     t0 = time.perf_counter()
@@ -3120,16 +3688,21 @@ def main():
     supplied = level_supply(dev, smi)
     print(f"phase 11: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    sharded = data_parallel(dev, smi)
+    print(f"phase 12: {time.perf_counter() - t:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = timings[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             # The main path's launches, the training path's, the
-            # evaluation path's, the game layer's and the level supply's.
+            # evaluation path's, the game layer's, the level supply's and
+            # the data-parallel training's.
             launches=launches[name] + trained.get(name, 0)
             + evaluated.get(name, 0) + played.get(name, 0)
-            + supplied.get(name, 0), max_abs_err=err,
+            + supplied.get(name, 0) + sharded.get(name, 0), max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             # R1's plain version is one PyTorch call (a sum).
@@ -3139,10 +3712,10 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             # T1 also runs in the game layer's selftest and training, and
-            # in the level supply's trainers.
+            # in the level supply's and the data-parallel trainers.
             launches=paths[path][counter] + (
                 played.get(counter, 0) + supplied.get(counter, 0)
-                if path == "bench" else 0),
+                + sharded.get(counter, 0) if path == "bench" else 0),
             max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms))

@@ -244,7 +244,9 @@ constexpr int MIN_BLOCKS = 2;
 constexpr int MAX_SEG = 32;
 constexpr int MAX_CELLS = 64;
 
-// seed: the step's int32 seed (read only when DRAW != DRAW_NONE).
+// seed: the step's int32 seed (read only when DRAW != DRAW_NONE); env0 the
+// global index of environment 0 in the draw's counter (a rank's first
+// environment when the batch is split over ranks; 0 otherwise).
 // sf rows: 0 spawn_prob, 1 min_performance.
 // act_i: K1's out_i.  obs_i rows: fresh agent_row, fresh agent_col, then K
 // rows each of live exit_row, exit_col, exit_valid, fresh exit_row,
@@ -265,7 +267,7 @@ struct AdvanceArgs {
   uint16_t *out_board, *out_goals, *out_init, *out_view;
   int32_t* out_i;
   int H, W, B, time_limit, vh, vw, K, remove_white_goals;
-  int envs, slots, seg, vector, staged;
+  int envs, slots, seg, vector, staged, env0;
 };
 
 // The view pixel of a final cell: its goal colour in bits 12-14, an add
@@ -385,12 +387,12 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
         const Off o = static_cast<Off>(id) * S + e;
         const int cell = sb.advance(c, [&] {
           return spawn_draw<DRAW, 0>(a.seed[0], id,
-                                     static_cast<uint32_t>(b0 + e),
+                                     static_cast<uint32_t>(a.env0 + b0 + e),
                                      env_v[0][e]);
         });
         const int gv = sg.advance(c, [&] {
           return spawn_draw<DRAW, 1>(a.seed[0], id,
-                                     static_cast<uint32_t>(b0 + e),
+                                     static_cast<uint32_t>(a.env0 + b0 + e),
                                      env_v[0][e]);
         });
         const int iv = s_init[o];
@@ -737,7 +739,7 @@ extern "C" int sl_advance(const int32_t* seed, const int32_t* si,
                           int B, int time_limit, int vh, int vw, int K,
                           int remove_white_goals, int rule, int draw,
                           int envs, int slots, int seg, int vector,
-                          int staged, cudaStream_t stream) {
+                          int staged, int env0, cudaStream_t stream) {
   if (out_view != nullptr && time_limit <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -749,7 +751,8 @@ extern "C" int sl_advance(const int32_t* seed, const int32_t* si,
                       fresh_i,   out_board, out_goals, out_init, out_view,
                       out_i,     H,         W,         B,        time_limit,
                       vh,        vw,        K,         remove_white_goals,
-                      envs,      slots,     seg,       vector,   staged};
+                      envs,      slots,     seg,       vector,   staged,
+                      env0};
   using Spawnless = SpawnlessRule;
   using Full = FullRule<true>;
   if (rule == RULE_STATIC_SPAWNLESS && draw == DRAW_NONE) {

@@ -68,11 +68,31 @@ class TimeStep:
 
 class BatchedSafeLifeEnv:
     """B lockstep environments on one device (``cuda`` unless the caller
-    passes ``device="cpu"``)."""
+    passes ``device="cpu"``).
 
-    def __init__(self, config: EnvConfig = EnvConfig(), device=None):
+    ``shard=(index, count)`` makes the B environments shard ``index`` of a
+    batch of ``count * B`` split over ``count`` ranks (one per device).
+    Every random draw then takes the whole batch's shape from the
+    generator and keeps this shard's rows, and the kernels' Philox
+    counter starts at the shard's first global environment: with the same
+    generator seed on every rank, the shards step exactly as the whole
+    batch does in one process, and the ranks' generators stay in step.
+    ``num_steps`` counts the whole batch's steps (so the wrappers'
+    schedules see the global step); the episode counters count the
+    shard's own episodes.
+    """
+
+    def __init__(self, config: EnvConfig = EnvConfig(), device=None,
+                 shard=(0, 1)):
         self.config = config
         self.device = resolve_device(device)
+        index, count = shard
+        if not 0 <= index < count:
+            raise ValueError(f"shard {index} of {count}")
+        if count > 1 and not config.auto_reset:
+            raise ValueError("a sharded env auto-resets: its step counter "
+                             "adds the whole batch every step")
+        self.shard = (index, count)
 
     def _check_device(self, *tensors):
         for t in tensors:
@@ -80,15 +100,34 @@ class BatchedSafeLifeEnv:
                 raise ValueError(
                     f"tensor on {t.device}, environment on {self.device}")
 
+    # -- sharding --------------------------------------------------------
+
+    def env0(self, batch):
+        """The global index of this shard's first environment, for a shard
+        of ``batch`` environments."""
+        return self.shard[0] * batch
+
+    def shard_of(self, batch, draw, dim=0):
+        """This shard's ``batch`` entries along ``dim`` of ``draw(n)``, a
+        draw for the whole batch of ``n`` environments."""
+        index, count = self.shard
+        full = draw(batch * count)
+        return full if count == 1 else full.narrow(dim, index * batch, batch)
+
     # -- resets ----------------------------------------------------------
 
     def _next_level_idx(self, num_levels, batch, reset_count, generator):
         if self.config.sequential_levels:
-            # env b plays levels b, b+B, b+2B, ... (round-robin eval order).
-            rank = torch.arange(batch, dtype=torch.int32, device=self.device)
-            return torch.remainder(rank + reset_count * batch, num_levels)
-        return torch.randint(0, num_levels, (batch,), generator=generator,
-                             device=self.device, dtype=torch.int32)
+            # env b plays levels b, b+B, b+2B, ... (round-robin eval order),
+            # b and B counted in the whole batch.
+            first = self.env0(batch)
+            rank = torch.arange(first, first + batch, dtype=torch.int32,
+                                device=self.device)
+            return torch.remainder(
+                rank + reset_count * (batch * self.shard[1]), num_levels)
+        return self.shard_of(batch, lambda n: torch.randint(
+            0, num_levels, (n,), generator=generator, device=self.device,
+            dtype=torch.int32))
 
     def _fresh_state_fields(self, bank: LevelBank, idx):
         """Per-board fields of a freshly-reset state (no counters)."""
@@ -159,8 +198,9 @@ class BatchedSafeLifeEnv:
         """Pre-gather one random fresh level per env for the auto-resets
         of the coming steps (an env that resets twice in that time
         replays the same level)."""
-        idx = torch.randint(0, bank.num_levels, (batch_size,),
-                            generator=generator, device=self.device)
+        idx = self.shard_of(batch_size, lambda n: torch.randint(
+            0, bank.num_levels, (n,), generator=generator,
+            device=self.device))
         return self.fresh_levels(bank, idx)
 
     # -- observations ----------------------------------------------------
@@ -214,7 +254,8 @@ class BatchedSafeLifeEnv:
             obs_view=cfg.view_shape if kernel_obs else None,
             exit_row=state.exit_row, exit_col=state.exit_col,
             exit_valid=state.exit_valid, exit_gcol=state.exit_gcol,
-            remove_white_goals=cfg.remove_white_goals)
+            remove_white_goals=cfg.remove_white_goals,
+            env0=self.env0(state.batch_size))
 
     def step_seed(self, generator=None):
         """The spawn seed of one kernel step: an int32 tensor of one
@@ -234,11 +275,12 @@ class BatchedSafeLifeEnv:
             bank.spawn_simple_goals)
         draw = env_step_kernels.pick_draw(rule, bank.spawnless)
         shape = state.board.shape
+        env0 = self.env0(state.batch_size)
         none = torch.zeros(shape, dtype=torch.bool, device=self.device)
         if draw == "u24":
-            return rng.spawn_field24(seed, state.spawn_prob, shape), none
+            return rng.spawn_field24(seed, state.spawn_prob, shape, env0), none
         if draw == "pair":
-            return rng.spawn_field_pair(seed, state.spawn_prob, shape)
+            return rng.spawn_field_pair(seed, state.spawn_prob, shape, env0)
         return none, none
 
     def step(self, state: EnvState, bank: LevelBank, action,
@@ -319,7 +361,11 @@ class BatchedSafeLifeEnv:
             episode_reward=episode_reward, episode_done=done,
             episodes_completed=state.episodes_completed
             + (done & counted).sum().to(torch.int32),
-            num_steps=state.num_steps + counted.sum().to(torch.int32),
+            # Global env steps: with auto-reset every env counts every
+            # step, so each shard adds the whole batch (its count times
+            # the shards).
+            num_steps=state.num_steps
+            + counted.sum().to(torch.int32) * self.shard[1],
         )
 
         new_state = mid
@@ -364,8 +410,9 @@ class BatchedSafeLifeEnv:
         return new_state, ts
 
     def _spawn_field(self, state, generator):
-        u = torch.rand(state.board.shape, generator=generator,
-                       device=self.device)
+        h, w, b = state.board.shape
+        u = self.shard_of(b, lambda n: torch.rand(
+            (h, w, n), generator=generator, device=self.device), dim=2)
         return u < state.spawn_prob[None, None, :]
 
 

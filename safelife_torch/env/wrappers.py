@@ -91,6 +91,13 @@ def unwrap(state):
     return state
 
 
+def unwrap_env(env):
+    """Peel all wrapper layers -> the core BatchedSafeLifeEnv."""
+    while isinstance(env, Wrapper):
+        env = env.env
+    return env
+
+
 def replace_core(state, new_core):
     """Replace the core EnvState under any wrapper nesting."""
     if isinstance(state, WrapperState):

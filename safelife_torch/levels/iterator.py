@@ -84,6 +84,22 @@ def _set_rng_state(state):
     np.random.set_state(state)
 
 
+# How long the pool's next game may take before its workers are killed and
+# the loader raises TimeoutError (a game takes seconds).
+WORKER_TIMEOUT_S = 300.0
+
+
+def _kill_workers(pool):
+    """Kill a process pool's workers (``ProcessPoolExecutor`` has no public
+    call for it before Python 3.14)."""
+    kill = getattr(pool, "kill_workers", None)
+    if kill is not None:
+        kill()
+        return
+    for proc in list((getattr(pool, "_processes", None) or {}).values()):
+        proc.kill()
+
+
 def safelife_loader(*paths, repeat="auto", shuffle=False, num_workers=1,
                     max_queue=10):
     """Yield SafeLifeGame instances from level files / procgen params.
@@ -95,7 +111,9 @@ def safelife_loader(*paths, repeat="auto", shuffle=False, num_workers=1,
     process (so ``np.random.seed`` before the first game gives the same
     games as ``num_workers=0``), with more each game is reseeded from
     urandom.  The paths are resolved when the first game is asked for;
-    the pool closes when the iterator ends or is closed.
+    the pool closes when the iterator ends or is closed.  A game the pool
+    does not deliver within ``WORKER_TIMEOUT_S`` seconds kills the workers
+    and raises TimeoutError.
     """
     entries = _load_entries(paths)
     if not entries:
@@ -125,18 +143,22 @@ def safelife_loader(*paths, repeat="auto", shuffle=False, num_workers=1,
         max_workers=num_workers,
         mp_context=multiprocessing.get_context("spawn"),
         initializer=_set_rng_state, initargs=(np.random.get_state(),))
+    timeout = WORKER_TIMEOUT_S
     try:
         kwargs = {"set_seed": num_workers > 1}
         pending = collections.deque()
         for entry in entry_stream():
             next_game = None
             if len(pending) >= max_queue or (pending and pending[0].done()):
-                next_game = pending.popleft().result()
+                next_game = pending.popleft().result(timeout)
             pending.append(pool.submit(_game_from_entry, *entry, **kwargs))
             if next_game is not None:
                 yield next_game
         while pending:
-            yield pending.popleft().result()
+            yield pending.popleft().result(timeout)
+    except concurrent.futures.TimeoutError:
+        _kill_workers(pool)
+        raise
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 

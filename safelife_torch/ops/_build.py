@@ -49,7 +49,8 @@ SIGNATURES = {
                        _P, _P, _P, _P, _P,         # outputs
                        _I, _I, _I, _I, _I, _I, _I, _I,  # H .. remove_white
                        _I, _I,                     # rule, draw
-                       _I, _I, _I, _I, _I, _P),    # geometry, stream
+                       _I, _I, _I, _I, _I,         # geometry
+                       _I, _P),                    # env0, stream
     },
     "obs_micro": {
         "sl_view_crop": (_P, _P, _P) + (_I,) * 9 + (_P,),

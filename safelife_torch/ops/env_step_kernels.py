@@ -269,14 +269,15 @@ def advance_geometry(h, w, rule, b, vector=True):
                 blocks=None, staged=False, vector=False)
 
 
-def _advance_rule(board, goals, rule, draw, seed, spawn_prob):
+def _advance_rule(board, goals, rule, draw, seed, spawn_prob, env0=0):
     """The CA advance of K2/K3 on int32 boards: ``(board', goals')``, the
     goals unchanged under the static rules."""
     spawn_b = spawn_g = None
     if draw == "u24":
-        spawn_b = rng.spawn_field24(seed, spawn_prob, board.shape)
+        spawn_b = rng.spawn_field24(seed, spawn_prob, board.shape, env0)
     elif draw == "pair":
-        spawn_b, spawn_g = rng.spawn_field_pair(seed, spawn_prob, board.shape)
+        spawn_b, spawn_g = rng.spawn_field_pair(seed, spawn_prob, board.shape,
+                                                env0)
     if rule in ("static_spawnless", "static"):
         return _advance_block(board, spawn_b), goals
     if rule == "simple":
@@ -288,19 +289,21 @@ def _advance_rule(board, goals, rule, draw, seed, spawn_prob):
 
 def advance_plain(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
                   time_limit, obs_view, remove_white_goals=True,
-                  rule="static_spawnless", draw="none", seed=None):
+                  rule="static_spawnless", draw="none", seed=None, env0=0):
     """The plain version of K2 (``time_limit > 0``) and K3.
 
     ``fresh`` is the (board, goals, init_board) of the fresh levels (fold
     only); ``obs_view`` (vh, vw) asks for the packed view (fold only);
     ``rule`` and ``draw`` are from :func:`pick_rule` and :func:`pick_draw`,
     ``seed`` the step's int32 seed tensor (read where ``draw`` is not
-    "none").  Returns ``(board', goals', init_board' or None, view or None,
+    "none") and ``env0`` the global index of the first environment in the
+    draw's counter (nonzero on a rank that holds a later shard of the
+    batch).  Returns ``(board', goals', init_board' or None, view or None,
     out_i)`` with out_i rows points, perf_completed, perf_possible,
     can_exit1, side-effect count.
     """
     board, goals = _advance_rule(board1.to(torch.int32), goals.to(torch.int32),
-                                rule, draw, seed, sf[0])
+                                rule, draw, seed, sf[0], env0)
     dynamic = rule not in ("static_spawnless", "static")
     zero = torch.zeros_like(board)
 
@@ -392,14 +395,14 @@ def _view_plain(final_b, final_g, done, act_i, obs_i, ce1, obs_view,
 
 def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
             time_limit, obs_view, remove_white_goals=True,
-            rule="static_spawnless", draw="none", seed=None):
+            rule="static_spawnless", draw="none", seed=None, env0=0):
     """K2 (``time_limit > 0``) or K3 on CUDA boards, the plain version on
     CPU boards; arguments and results as :func:`advance_plain`, launched
     with :func:`advance_geometry`."""
     if board1.device.type == "cpu":
         return advance_plain(si, sf, act_i, obs_i, board1, goals,
                              init_board, fresh, time_limit, obs_view,
-                             remove_white_goals, rule, draw, seed)
+                             remove_white_goals, rule, draw, seed, env0)
     do_reset = time_limit > 0
     boards = (board1, goals, init_board) + (tuple(fresh) if do_reset else ())
     _build.check_cuda(*boards, dtypes=(torch.uint16,) * len(boards))
@@ -438,7 +441,7 @@ def advance(si, sf, act_i, obs_i, board1, goals, init_board, fresh,
             h, w, b, int(time_limit), vh, vw, num_exits,
             int(remove_white_goals), RULES.index(rule), DRAWS.index(draw),
             geo["envs"], geo["slots"], geo["seg"], int(geo["vector"]),
-            int(geo["staged"]))
+            int(geo["staged"]), int(env0))
     return out_board, out_goals, out_init, view, out_i
 
 
@@ -452,11 +455,14 @@ def kernel_args(board, goals, init_board, action, agent_row, agent_col,
                 episode_length=None, fresh=None, time_limit=0,
                 spawnless=False, simple_goals=False, spawn_simple_goals=False,
                 obs_view=None, exit_row=None, exit_col=None, exit_valid=None,
-                exit_gcol=None, remove_white_goals=True, perf_possible=None):
+                exit_gcol=None, remove_white_goals=True, perf_possible=None,
+                env0=0):
     """The arguments of K1 and K2/K3 for :func:`fused_step`'s arguments:
     the per-env values packed into the ``si`` (int32), ``sf`` (float32)
     and ``obs_i`` (int32) row tables the kernels read, the bank's rule and
-    draw, and the step's seed as an int32 tensor on the boards' device."""
+    draw, the step's seed as an int32 tensor on the boards' device, and
+    ``env0``, the global index of the first environment in the spawn
+    draw's counter."""
     if static_goals and perf_possible is None:
         raise ValueError("static_goals=True needs the live perf_possible")
     rule = pick_rule(static_goals, spawnless, simple_goals,
@@ -498,7 +504,7 @@ def kernel_args(board, goals, init_board, action, agent_row, agent_col,
                if time_limit > 0 else None),
         time_limit=time_limit, obs_view=obs_view if emit_obs else None,
         remove_white_goals=remove_white_goals, rule=rule, draw=draw,
-        seed=None if draw == "none" else i32(seed).reshape(1))
+        seed=None if draw == "none" else i32(seed).reshape(1), env0=env0)
 
 
 def run_kernels(args, plain=False):
@@ -511,7 +517,7 @@ def run_kernels(args, plain=False):
             args["si"], args["sf"], act_i, args["obs_i"], board1,
             args["goals"], args["init_board"], args["fresh"],
             args["time_limit"], args["obs_view"], args["remove_white_goals"],
-            args["rule"], args["draw"], args["seed"])
+            args["rule"], args["draw"], args["seed"], args["env0"])
     ret = (out_board, out_goals, act_i[0], act_i[1], act_i[2],
            act_i[3] != 0, adv_i[0], adv_i[1], adv_i[2], adv_i[3] != 0,
            adv_i[4])

@@ -2,10 +2,11 @@
 
 This replaces the TPU's in-core PRNG of ``safelife_tpu.ops.life_pallas``
 (``_spawn_field``, ``_spawn_field_pair``).  The key is the step's seed and
-the counter is (cell index ``r * W + c``, environment index, 0, 0), so a
-cell's random word depends on neither the launch geometry nor on which
-cells were drawn before it: a kernel may draw only where the CA rule reads
-the draw and still equal the full fields computed here.
+the counter is (cell index ``r * W + c``, environment index in the whole
+batch, 0, 0), so a cell's random word depends on neither the launch
+geometry nor on which cells were drawn before it: a kernel may draw only
+where the CA rule reads the draw and still equal the full fields computed
+here, and a rank holding a shard of the batch draws that shard's rows.
 ``csrc/philox.cuh`` is the same generator as a device function.
 
 The TPU's quantisation is kept exactly:
@@ -62,15 +63,18 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def spawn_words(seed, shape, device):
+def spawn_words(seed, shape, device, env0=0):
     """The (H, W, B) int64 field of random words for the step ``seed``
     (an int32 tensor of one element, read on the device, never on the
-    host): the first output word of Philox at counter (r * W + c, b, 0, 0)
-    and key (seed, 0)."""
+    host): the first output word of Philox at counter (r * W + c,
+    env0 + b, 0, 0) and key (seed, 0).  ``env0`` is the global index of
+    the first environment: a shard of a batch split over ranks draws the
+    rows ``[env0, env0 + B)`` of the whole batch's field."""
     h, w, b = shape
     cell = torch.arange(h * w, dtype=torch.int64, device=device).reshape(
         h, w, 1)
-    env = torch.arange(b, dtype=torch.int64, device=device).reshape(1, 1, b)
+    env = torch.arange(env0, env0 + b, dtype=torch.int64,
+                       device=device).reshape(1, 1, b)
     key0 = torch.as_tensor(seed, device=device).reshape(1).to(
         torch.int64) & MASK32
     return philox4x32((cell, env, 0, 0), (key0, 0))[0]
@@ -110,17 +114,18 @@ def threshold(spawn_prob, bits):
     return (spawn_prob.to(torch.float32) * float(1 << bits)).to(torch.int32)
 
 
-def spawn_field24(seed, spawn_prob, shape):
+def spawn_field24(seed, spawn_prob, shape, env0=0):
     """One (H, W, B) bool spawn field: the 24-bit draw against
-    ``spawn_prob`` (B,) (``life_pallas._spawn_field``)."""
-    words = spawn_words(seed, shape, spawn_prob.device)
+    ``spawn_prob`` (B,) (``life_pallas._spawn_field``), from environment
+    ``env0`` of the batch on."""
+    words = spawn_words(seed, shape, spawn_prob.device, env0)
     return ((words >> 8) & 0xFFFFFF) < threshold(spawn_prob, 24)
 
 
-def spawn_field_pair(seed, spawn_prob, shape):
+def spawn_field_pair(seed, spawn_prob, shape, env0=0):
     """Two (H, W, B) bool spawn fields from one draw: the low 16 bits of
     each word for the board, the high 16 bits for the goal board
-    (``life_pallas._spawn_field_pair``)."""
-    words = spawn_words(seed, shape, spawn_prob.device)
+    (``life_pallas._spawn_field_pair``), from environment ``env0`` on."""
+    words = spawn_words(seed, shape, spawn_prob.device, env0)
     thresh = threshold(spawn_prob, 16)
     return (words & 0xFFFF) < thresh, (words >> 16) < thresh

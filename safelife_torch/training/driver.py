@@ -19,6 +19,20 @@ counters are resynced (the reference does the same for its
 every checkpoint is followed by one recorded episode of the current policy,
 ``<logdir>/episode-<step>.npz`` and its ``.gif``
 (:meth:`Trainer.maybe_record_video`).
+
+Data-parallel training (``Trainer(mesh=)``, a
+``safelife_torch.parallel.mesh.DataMesh``): ``num_envs`` stays the whole
+batch and each rank steps its block of ``num_envs / world`` environments
+(``PPOConfig.data_shards`` must be the world size); the generators are
+seeded alike and every draw takes the whole batch's shape, so the ranks
+together step as one process with ``data_shards = world`` does.  The
+gradient is averaged over the ranks before each clipped Adam step.
+Parameters are broadcast from rank 0 at the start, after a restore and
+after a bank switch, and banks are made on rank 0 and broadcast.  Episode
+stats and metrics are gathered at report time only (every rank logs the
+same global numbers), and so is the news that rank 0's background bank
+refresh is ready; rank 0 writes the logs, checkpoints, evaluations and
+videos, each followed by a barrier.
 """
 
 import dataclasses
@@ -81,13 +95,15 @@ class TrainerConfig:
     recurrent: bool = False
 
 
-def make_training_env(cfg: TrainerConfig, device=None):
+def make_training_env(cfg: TrainerConfig, device=None, shard=(0, 1)):
     """The reference's training wrapper stack (safelife_ppo.py:111-139):
     base env (33x33 view) -> MovementBonus -> SideEffectPenalty ->
     Continuing, on ``device`` (``cuda`` unless the caller passes another),
-    with the CUDA kernels on."""
+    with the CUDA kernels on; ``shard=(rank, world)`` for one rank's
+    block of a data-parallel batch (see ``BatchedSafeLifeEnv``)."""
     env = BatchedSafeLifeEnv(EnvConfig(
-        view_shape=cfg.view_shape, time_limit=cfg.time_limit), device=device)
+        view_shape=cfg.view_shape, time_limit=cfg.time_limit), device=device,
+        shard=shard)
     env = W.MovementBonusWrapper(env, movement_bonus=cfg.movement_bonus)
     env = W.SideEffectPenaltyWrapper(
         env, penalty_coef=cfg.impact_penalty,
@@ -109,7 +125,7 @@ def _host(tree):
 
 class Trainer:
     """Owns the training loop for one PPO run on ``device`` (``cuda``
-    unless the caller passes another)."""
+    unless the caller passes another; the mesh's device on a ``mesh``)."""
 
     def __init__(self, trainer_cfg: TrainerConfig,
                  ppo_cfg: PPOConfig = PPOConfig(),
@@ -117,27 +133,44 @@ class Trainer:
                  level_paths: Sequence[str] = (
                      "benchmarks/v1.0/append-still.npz",),
                  net=None, env=None, level_names=None,
-                 bank_schedule=None, bank_factory=None, device=None):
+                 bank_schedule=None, bank_factory=None, device=None,
+                 mesh=None):
         self.cfg = trainer_cfg
         self.ppo_cfg = ppo_cfg
-        self.device = resolve_device(device)
-        self.bank = bank if bank is not None else loader.load_bank(
-            *level_paths, device=self.device)
+        self.mesh = mesh
+        self.rank, self.world_size = ((mesh.rank, mesh.world_size) if mesh
+                                      else (0, 1))
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"trainer on {self.device}, mesh on "
+                             f"{mesh.device}")
+        if trainer_cfg.num_envs % self.world_size:
+            raise ValueError(f"{trainer_cfg.num_envs} environments do not "
+                             f"divide over {self.world_size} ranks")
+        # The environments this process steps.
+        self.local_envs = trainer_cfg.num_envs // self.world_size
+        if bank is None and self.rank == 0:
+            bank = loader.load_bank(*level_paths, device=self.device)
+        self.bank = self._replicate_bank(bank)
         self.bank_factory = bank_factory  # regenerates the CURRENT bank
-        self._refresher = None            # background bank-regen thread
+        self._refresher = None  # rank 0's background bank-regen thread
         self.level_names = level_names
         self.env = env if env is not None else make_training_env(
-            trainer_cfg, self.device)
+            trainer_cfg, self.device, shard=(self.rank, self.world_size))
+        if W.unwrap_env(self.env).shard != (self.rank, self.world_size):
+            raise ValueError("the env must hold this rank's shard")
         self.ppo = (RecurrentPPO if trainer_cfg.recurrent else PPO)(
-            ppo_cfg, self.env)
+            ppo_cfg, self.env, mesh=mesh)
 
         # Weights from a CPU generator (the same on every device), the
-        # rollouts' and the resets' draws from one on the device.
+        # rollouts' and the resets' draws from one on the device (seeded
+        # alike on every rank).
         init = torch.Generator().manual_seed(trainer_cfg.seed)
         self.generator = torch.Generator(self.device)
         self.generator.manual_seed(trainer_cfg.seed)
         self.env_state = self.env.reset_all(
-            self.bank, trainer_cfg.num_envs, self.generator)
+            self.bank, self.local_envs, self.generator)
         self.obs = self.env.observe(self.env_state)
         net_class = SafeLifeLSTMNet if trainer_cfg.recurrent else SafeLifeCNN
         self.net = (net or net_class(
@@ -145,17 +178,19 @@ class Trainer:
             num_actions=9, n_gamma=ppo_cfg.n_gamma,
             generator=init)).to(self.device)
         self.train_state = init_train_state(ppo_cfg, self.net)
+        self._replicate_params()
         # The LSTM carry of the training envs (None for the CNN).
-        self.carry = (self.net.initial_carry(trainer_cfg.num_envs)
+        self.carry = (self.net.initial_carry(self.local_envs)
                       if trainer_cfg.recurrent else None)
         self.dead_start_evals = 0  # consecutive evals flagged dead
 
-        if trainer_cfg.logdir:
+        # Rank 0 writes the run's files.
+        logdir = trainer_cfg.logdir if self.rank == 0 else None
+        if logdir:
             self._write_run_config()
-        self.writer = make_summary_writer(trainer_cfg.logdir)
+        self.writer = make_summary_writer(logdir)
         self.episode_logger = EpisodeLogger(
-            os.path.join(trainer_cfg.logdir, "training.yaml")
-            if trainer_cfg.logdir else None,
+            os.path.join(logdir, "training.yaml") if logdir else None,
             summary_writer=self.writer)
         self._steps_offset = 0  # counters restored from checkpoint
         self._next_refresh = trainer_cfg.fresh_levels_every
@@ -164,6 +199,49 @@ class Trainer:
         # swapped and all envs reset (reference start-training's
         # spawn_loader curriculum, start-training:169-184).
         self.bank_schedule = sorted(bank_schedule or [], key=lambda x: x[0])
+
+    # -- the mesh ----------------------------------------------------------
+
+    def _replicate_bank(self, bank):
+        """Rank 0's ``bank`` on every rank (other ranks may pass None)."""
+        if self.mesh is None:
+            return bank
+        from ..parallel.mesh import replicate_bank
+        return replicate_bank(self.mesh, bank)
+
+    def _replicate_params(self):
+        """Rank 0's parameters and ``spe`` on every rank."""
+        if self.mesh is not None:
+            from ..parallel.mesh import replicate
+            replicate(self.mesh, (self.net, self.train_state.spe))
+
+    def _barrier(self):
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _gather(self, metrics, episodes):
+        """The report's metrics averaged over the ranks, its episode stats,
+        (T * batches, B) each, gathered along the environments, on the
+        host; and on a mesh of several ranks whether rank 0's fresh bank
+        is ready, riding the metrics' all-reduce (None in one process,
+        where the refresh reads its own thread)."""
+        episodes = {k: torch.cat([e[k] for e in episodes])
+                    for k in episodes[0]}
+        ready = None
+        if self.world_size > 1:
+            keys = sorted(metrics)
+            flat = torch.cat([metrics[k].detach().to(torch.float32).reshape(
+                -1) for k in keys] + [torch.tensor(
+                    [float(self._refresh_ready())], device=self.device)])
+            flat = self.mesh.all_reduce(flat)
+            ready = bool(flat[-1] > 0)
+            flat = flat[:-1] / self.world_size
+            sizes = [metrics[k].numel() for k in keys]
+            metrics = {k: v.view_as(metrics[k]) for k, v in zip(
+                keys, torch.split(flat, sizes))}
+            episodes = {k: self.mesh.all_gather(v, dim=1)
+                        for k, v in episodes.items()}
+        return _host(metrics), _host(episodes), ready
 
     def _write_run_config(self):
         """Persist what's needed to rebuild the policy from the logdir
@@ -189,11 +267,22 @@ class Trainer:
         return int(W.unwrap(self.env_state).num_steps) + self._steps_offset
 
     def save_checkpoint(self):
+        """Rank 0 writes the checkpoint (the episode counters summed over
+        the ranks), then every rank waits for it."""
         root = self._checkpoint_dir()
         if root is None:
             return
-        os.makedirs(root, exist_ok=True)
         core = W.unwrap(self.env_state)
+        episodes = torch.stack([core.episodes_started,
+                                core.episodes_completed]).to(torch.int64)
+        if self.mesh is not None:
+            self.mesh.all_reduce(episodes)
+        if self.rank == 0:
+            self._write_checkpoint(root, episodes.tolist())
+        self._barrier()
+
+    def _write_checkpoint(self, root, episodes):
+        os.makedirs(root, exist_ok=True)
         ts = self.train_state
         step = self.global_step()
         payload = {
@@ -204,8 +293,8 @@ class Trainer:
             "generator": self.generator.get_state(),
             "counters": {
                 "num_steps": step,
-                "episodes_started": int(core.episodes_started),
-                "episodes_completed": int(core.episodes_completed),
+                "episodes_started": episodes[0],
+                "episodes_completed": episodes[1],
             },
         }
         path = os.path.join(root, f"{step}.pt")
@@ -232,18 +321,21 @@ class Trainer:
         # (map_location moved the generator's CPU state to the device.)
         self.generator.set_state(payload["generator"].cpu())
         # Resync global counters into the env state (reference:
-        # safelife_ppo.py:88-106).
+        # safelife_ppo.py:88-106).  The episode counters are the ranks'
+        # sum: rank 0's state takes them, the others' start from 0.
         counters = payload["counters"]
         core = W.unwrap(self.env_state)
         i32 = dict(dtype=torch.int32, device=self.device)
         self._steps_offset = int(counters["num_steps"])
+        own = self.rank == 0
         core = core.replace(
             num_steps=torch.tensor(0, **i32),
-            episodes_started=torch.tensor(counters["episodes_started"],
-                                          **i32),
-            episodes_completed=torch.tensor(counters["episodes_completed"],
-                                            **i32))
+            episodes_started=torch.tensor(
+                counters["episodes_started"] if own else 0, **i32),
+            episodes_completed=torch.tensor(
+                counters["episodes_completed"] if own else 0, **i32))
         self.env_state = W.replace_core(self.env_state, core)
+        self._replicate_params()
         logger.info("restored checkpoint from step %d", step)
         return True
 
@@ -269,7 +361,7 @@ class Trainer:
         # Ops-level crash-resume marker (reference start-training:53-66:
         # active_job.txt lets a restarted box resume its run).
         marker = None
-        if self.cfg.logdir:
+        if self.cfg.logdir and self.rank == 0:
             marker = os.path.join(self.cfg.logdir, "active_job.txt")
             with open(marker, "w") as fh:
                 fh.write(f"{os.getpid()} step={self.global_step()}\n")
@@ -289,12 +381,11 @@ class Trainer:
             pending_eps.append(metrics.pop("episodes"))
             step = self.global_step()
 
+            # The ranks of a mesh learn of a fresh bank at reports only.
+            ready = False if self.world_size > 1 else None
             if step >= next_report:
-                metrics = _host(metrics)
-                eps = [_host(e) for e in pending_eps]
+                metrics, eps, ready = self._gather(metrics, pending_eps)
                 pending_eps = []
-                eps = {k: np.concatenate([e[k] for e in eps])
-                       for k in eps[0]}
                 self.episode_logger.log_batch(
                     eps, global_step=step, level_names=self.level_names)
                 log_training_metrics(self.writer, metrics, step)
@@ -311,7 +402,7 @@ class Trainer:
                     progress_fn(step, metrics)
                 next_report = step + self.cfg.report_every
 
-            self._maybe_refresh_bank(step)
+            self._maybe_refresh_bank(step, ready)
 
             if step >= next_save:
                 self.save_checkpoint()
@@ -345,35 +436,52 @@ class Trainer:
                         self.global_step())
             if callable(factory):
                 self.bank_factory = factory  # endless-levels regen source
-            self.bank = factory() if callable(factory) else factory
+            bank = None
+            if self.rank == 0:
+                bank = factory() if callable(factory) else factory
+            self.bank = self._replicate_bank(bank)
             offset = self.global_step()
             self.env_state = self.env.reset_all(
-                self.bank, self.cfg.num_envs, self.generator)
+                self.bank, self.local_envs, self.generator)
             self.obs = self.env.observe(self.env_state)
             if self.carry is not None:  # fresh episodes: fresh LSTM state
-                self.carry = self.net.initial_carry(self.cfg.num_envs)
+                self.carry = self.net.initial_carry(self.local_envs)
             # reset_all zeroes the global counters; fold them into offset
             self._steps_offset = offset
+            self._replicate_params()
 
-    def _maybe_refresh_bank(self, step):
+    def _refresh_ready(self):
+        """Whether this rank's background regeneration has a bank ready
+        (only rank 0 runs one; a failed one is dropped)."""
+        if self._refresher is None or self._refresher[0].is_alive():
+            return False
+        if "bank" not in self._refresher[1]:
+            self._refresher = None
+            return False
+        return True
+
+    def _maybe_refresh_bank(self, step, ready=None):
         """Endless levels (reference: the safelife_loader generates forever,
-        file_finder.py:143-201): regenerate the training bank from its
-        factory every ``fresh_levels_every`` env steps on a background
-        thread, swapping it in between batches.  Auto-resets gather from
+        file_finder.py:143-201): rank 0 regenerates the training bank from
+        its factory every ``fresh_levels_every`` env steps on a background
+        thread, and the bank is swapped in between batches once every
+        rank knows it is ``ready``: at once in one process, at the next
+        report on a mesh of several ranks (the flag rides the report's
+        all-reduce), then broadcast from rank 0.  Auto-resets gather from
         the bank each rollout, so a swap changes all FUTURE episodes
-        without disturbing running ones."""
+        without disturbing running ones.  ``ready`` None reads this
+        process's own thread (one process only)."""
         if not self.cfg.fresh_levels_every or self.bank_factory is None:
             return
-        if self._refresher is not None:
-            thread, out = self._refresher
-            if thread.is_alive():
-                return
+        if ready is None:
+            ready = self._refresh_ready()
+        if ready:
+            bank = self._refresher[1]["bank"] if self.rank == 0 else None
             self._refresher = None
-            if "bank" in out:
-                self.bank = out["bank"]
-                logger.info("endless levels: fresh bank at step %d", step)
-            return
-        if step >= self._next_refresh:
+            self.bank = self._replicate_bank(bank)
+            logger.info("endless levels: fresh bank at step %d", step)
+        elif (self.rank == 0 and self._refresher is None
+              and step >= self._next_refresh):
             self._next_refresh = step + self.cfg.fresh_levels_every
             out = {}
 
@@ -394,9 +502,18 @@ class Trainer:
         env_wrappers.py:195-231; here the exact scoring runs on the eval
         suite at its cadence while every training episode logs its
         in-kernel side-effect cell count).  Returns run_benchmark's
-        results, or None without an ``eval_suite``."""
+        results, or None without an ``eval_suite`` (and on ranks other
+        than 0, which wait for rank 0's)."""
         if self.cfg.eval_suite is None:
             return None
+        if self.rank != 0:
+            self._barrier()
+            return None
+        results = self._evaluate()
+        self._barrier()
+        return results
+
+    def _evaluate(self):
         from ..benchmarking import run_benchmark, summarize
         # Log no numbers a sick device fabricated.
         check_device_integrity(self.device)
@@ -444,20 +561,29 @@ class Trainer:
 
     def maybe_record_video(self):
         """With ``record_videos`` and a ``logdir``: one episode of the
-        training env at B = 1 from a level drawn by the trainer's generator,
-        with the current policy, for up to ``time_limit`` steps, saved as
-        ``<logdir>/episode-<step>.npz`` and ``.gif``."""
+        training env at B = 1 from a level drawn by a generator of seed
+        ``seed + step`` (the training draws are left alone), with the
+        current policy, for up to ``time_limit`` steps, saved as
+        ``<logdir>/episode-<step>.npz`` and ``.gif`` by rank 0."""
         if not (self.cfg.record_videos and self.cfg.logdir):
             return
-        from ..metrics.recording import record_episode, save_trajectory
-        level_idx = int(torch.randint(
-            0, self.bank.num_levels, (1,), generator=self.generator,
-            device=self.device))
-        traj = record_episode(self.env, self.bank, self.policy_fn(),
-                              self.generator, level_idx=level_idx,
-                              max_steps=self.cfg.time_limit)
-        save_trajectory(traj, os.path.join(
-            self.cfg.logdir, f"episode-{self.global_step()}"))
+        if self.rank == 0:
+            from ..metrics.recording import record_episode, save_trajectory
+            step = self.global_step()
+            generator = torch.Generator(self.device).manual_seed(
+                self.cfg.seed + step)
+            level_idx = int(torch.randint(
+                0, self.bank.num_levels, (1,), generator=generator,
+                device=self.device))
+            env = self.env
+            if W.unwrap_env(env).shard[1] > 1:  # one env, not a shard
+                env = make_training_env(self.cfg, self.device)
+            traj = record_episode(env, self.bank, self.policy_fn(),
+                                  generator, level_idx=level_idx,
+                                  max_steps=self.cfg.time_limit)
+            save_trajectory(traj, os.path.join(
+                self.cfg.logdir, f"episode-{step}"))
+        self._barrier()
 
     def policy_fn(self):
         """Sampling policy of the trainer's net (its current weights at each

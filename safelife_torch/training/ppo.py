@@ -28,6 +28,19 @@ reference; see the JAX module for their sources):
 Ties go half and half in ``max``/``min`` (``torch.maximum``), as in JAX:
 on the first minibatch ``pi == pi_old`` exactly and the rectifier sits on
 its kink.
+
+Data shards (``PPOConfig.data_shards = S``): the batch is S contiguous
+shards of B / S environments, each epoch every shard shuffles only its
+own environments, and minibatch k takes rows ``[k * M, (k + 1) * M)`` of
+each shard's permutation, shard-major (M = B / S / num_minibatches), as
+the JAX learner's ``dynamic_slice_in_dim(..., axis=2).swapaxes(0, 1)``
+does.  All S permutations come from the one generator, so one process
+holding the S shards and S ranks holding one each (``PPO(mesh=)``, see
+``safelife_torch.parallel``) take the same minibatches.  On a mesh the
+loss's means are means over every rank's rows (``DataMesh.global_means``:
+the entropy clip and the per-batch value rescaling read the minibatch's
+global mean pseudo-entropy, as under GSPMD) and the gradient is averaged
+over the ranks before the clipped Adam step.
 """
 
 import dataclasses
@@ -35,7 +48,7 @@ from typing import Tuple
 
 import torch
 
-from ..env.wrappers import unwrap
+from ..env.wrappers import unwrap, unwrap_env
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +81,11 @@ class PPOConfig:
     epochs_per_batch: int = 3
     adam_epsilon: float = 1e-6
 
-    # Data-parallel shards of the env batch: multi-GPU training, not
-    # ported yet (ROADMAP A7); 1 = one device.
+    # Number of data-parallel shards of the env batch (the mesh's 'data'
+    # axis size).  Minibatch shuffling is done independently within each
+    # shard, so the epoch loop never moves trajectory data across ranks:
+    # only gradients (and the loss's few means) are all-reduced.  1 = a
+    # global shuffle.
     data_shards: int = 1
 
     @property
@@ -163,20 +179,19 @@ def init_train_state(cfg: PPOConfig, net):
 # Rollout
 # ---------------------------------------------------------------------------
 
-def sample_actions(logits, generator=None):
+def sample_actions(logits, generator=None, shard=(0, 1)):
     """One draw per row of the categorical ``softmax(logits)``: Gumbel-max
     (as ``jax.random.categorical``) on uniforms from ``generator``, on the
-    logits' device."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    logits' device.  With ``shard=(index, count)`` the rows are shard
+    ``index`` of ``count``: the uniforms are drawn for the whole batch and
+    this shard's rows kept (the env's ``shard``)."""
+    index, count = shard
+    b = logits.shape[0]
+    u = torch.rand((b * count,) + logits.shape[1:], generator=generator,
+                   device=logits.device)[index * b:(index + 1) * b]
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
     return torch.argmax(logits + gumbel, dim=-1)
-
-
-def _core_env(env):
-    while not hasattr(env, "sample_fresh_levels"):
-        env = env.env  # descend the wrapper chain
-    return env
 
 
 def mask_carry(carry, done):
@@ -191,8 +206,9 @@ def _rollout(cfg, net, env, bank, env_state, obs, carry, generator, actions,
     """The loop of :func:`rollout` and :func:`rollout_recurrent`; ``carry``
     None for a feed-forward net.  Returns (env_state, obs, carry, traj,
     episode stats)."""
+    core = unwrap_env(env)
     if fresh is None and env.config.auto_reset:
-        fresh = _core_env(env).sample_fresh_levels(
+        fresh = core.sample_fresh_levels(
             bank, unwrap(env_state).batch_size, generator)
 
     def forward(obs, carry):
@@ -203,7 +219,8 @@ def _rollout(cfg, net, env, bank, env_state, obs, carry, generator, actions,
     steps = []
     for t in range(cfg.steps_per_env):
         carry, (logits, value) = forward(obs, carry)
-        action = (sample_actions(logits, generator) if actions is None
+        action = (sample_actions(logits, generator, core.shard)
+                  if actions is None
                   else actions[t].to(logits.device, torch.int64))
         probs = torch.softmax(logits, dim=-1)
         old_pi = probs.gather(1, action[:, None])[:, 0]
@@ -300,10 +317,13 @@ def _rectifier(name):
 
 
 def _loss_terms(cfg: PPOConfig, logits, value, spe, action, old_pi,
-                old_value, returns, advantages, rescaling):
+                old_value, returns, advantages, rescaling, mesh=None):
     """The loss of the policy's ``logits`` and ``value`` on a minibatch
     (any leading batch layout; all reductions are full means), the value
-    loss rescaled as ``rescaling`` says."""
+    loss rescaled as ``rescaling`` says.  On a ``mesh`` the minibatch is
+    every rank's rows: each mean is taken over all of them
+    (``DataMesh.global_means``) before the terms that are not linear in
+    it."""
     probs = torch.softmax(logits, dim=-1)
     a_pi = probs.gather(-1, action[..., None].to(torch.int64))[..., 0]
     dev = logits.device
@@ -321,14 +341,11 @@ def _loss_terms(cfg: PPOConfig, logits, value, spe, action, old_pi,
     rect = _rectifier(cfg.policy_rectifier)
     policy_loss = torch.mean(advantages.abs() * rect(prob_diff, eps) * pw)
 
-    entropy = -torch.sum(probs * torch.log(probs + 1e-12), dim=-1)
+    entropy = torch.mean(-torch.sum(probs * torch.log(probs + 1e-12), dim=-1))
     pseudo_entropy = torch.sum(probs * (1.0 - probs), dim=-1)
     if not cfg.entropy_grad:
         pseudo_entropy = pseudo_entropy.detach()
     avg_pe = torch.mean(pseudo_entropy)
-    entropy_loss = -cfg.entropy_reg * torch.minimum(
-        avg_pe, torch.tensor(cfg.entropy_clip, device=dev))
-    entropy_loss = entropy_loss + 0.5 * torch.square(avg_pe.detach() - spe)
 
     v_clip = old_value + torch.clamp(value - old_value, -cfg.eps_clip,
                                      cfg.eps_clip)
@@ -336,29 +353,37 @@ def _loss_terms(cfg: PPOConfig, logits, value, spe, action, old_pi,
         torch.square(value - returns), torch.square(v_clip - returns))
     if rescaling == "per_state":
         value_loss = value_loss * pseudo_entropy[..., None]
-    elif rescaling == "per_batch":
-        value_loss = value_loss * avg_pe
     elif rescaling == "smooth":
         value_loss = value_loss * spe.detach()
-    elif rescaling:
+    elif rescaling and rescaling != "per_batch":
         raise ValueError(f"unknown value_grad_rescaling '{rescaling}'")
     value_loss = 0.5 * torch.mean(value_loss * vw)
+    if mesh is not None:
+        policy_loss, value_loss, entropy, avg_pe = mesh.global_means(
+            policy_loss, value_loss, entropy, avg_pe)
+    if rescaling == "per_batch":
+        value_loss = value_loss * avg_pe
+
+    entropy_loss = -cfg.entropy_reg * torch.minimum(
+        avg_pe, torch.tensor(cfg.entropy_clip, device=dev))
+    entropy_loss = entropy_loss + 0.5 * torch.square(avg_pe.detach() - spe)
 
     total = policy_loss + cfg.vf_coef * value_loss + entropy_loss
     metrics = dict(
         policy_loss=policy_loss, value_loss=value_loss,
-        entropy=torch.mean(entropy), pseudo_entropy=avg_pe,
+        entropy=entropy, pseudo_entropy=avg_pe,
         smoothed_pseudo_entropy=spe)
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
 def ppo_loss(cfg: PPOConfig, net, spe, obs, action, old_pi, old_value,
-             returns, advantages):
+             returns, advantages, mesh=None):
     """Loss over one minibatch (any leading batch layout; all reductions
-    are full means).  Returns (total, metrics of detached tensors)."""
+    are full means, over every rank's rows on a ``mesh``).  Returns
+    (total, metrics of detached tensors)."""
     logits, value = net(obs)
     return _loss_terms(cfg, logits, value, spe, action, old_pi, old_value,
-                       returns, advantages, cfg.value_grad_rescaling)
+                       returns, advantages, cfg.value_grad_rescaling, mesh)
 
 
 def recurrent_forward(net, obs_seq, done_seq, carry0):
@@ -378,7 +403,7 @@ def recurrent_forward(net, obs_seq, done_seq, carry0):
 
 
 def ppo_loss_recurrent(cfg: PPOConfig, net, spe, obs, done, carry0, action,
-                       old_pi, old_value, returns, advantages):
+                       old_pi, old_value, returns, advantages, mesh=None):
     """:func:`ppo_loss` of a recurrent ``net``: the (T, M) sequences of
     whole environments are replayed from ``carry0`` ((M, 512) pairs).  As
     the reference's recurrent loss (safelife_tpu/training/ppo.py:512-513),
@@ -386,12 +411,21 @@ def ppo_loss_recurrent(cfg: PPOConfig, net, spe, obs, done, carry0, action,
     logits, value = recurrent_forward(net, obs, done, carry0)
     rescaling = "smooth" if cfg.value_grad_rescaling == "smooth" else False
     return _loss_terms(cfg, logits, value, spe, action, old_pi, old_value,
-                       returns, advantages, rescaling)
+                       returns, advantages, rescaling, mesh)
 
 
 # ---------------------------------------------------------------------------
 # One training batch: rollout + GAE + epochs x minibatches
 # ---------------------------------------------------------------------------
+
+def minibatch_rows(perms, k, mb):
+    """The rows of minibatch ``k``: rows ``[k * mb, (k + 1) * mb)`` of each
+    shard's permutation (``perms`` (S, B / S), shard s's environments are
+    rows ``[s * B / S, (s + 1) * B / S)`` of the batch), shard-major."""
+    shards, local = perms.shape
+    first = torch.arange(0, shards * local, local, device=perms.device)
+    return (perms[:, k * mb:(k + 1) * mb] + first[:, None]).reshape(-1)
+
 
 class PPO:
     """Binds config + env into the training batch.
@@ -402,34 +436,55 @@ class PPO:
         ts = init_train_state(cfg, net)
         env_state, obs, metrics = ppo.train_batch(ts, env_state, obs, bank,
                                                   generator)
+
+    On a ``mesh`` (``safelife_torch.parallel.mesh.DataMesh``) of more than
+    one rank, each rank's env holds its data shard (``data_shards`` must
+    be the world size) and the update averages the ranks' gradients.
     """
 
-    def __init__(self, cfg: PPOConfig, env):
-        if cfg.data_shards != 1:
-            raise NotImplementedError(
-                "data_shards > 1 is multi-GPU training, ROADMAP item A7, "
-                "not ported yet")
+    def __init__(self, cfg: PPOConfig, env, mesh=None):
+        world = mesh.world_size if mesh is not None else 1
+        if cfg.data_shards < 1 or (world > 1 and cfg.data_shards != world):
+            raise ValueError(f"data_shards={cfg.data_shards} on "
+                             f"{world} ranks: each rank holds one shard")
         self.cfg = cfg
         self.env = env
+        self.mesh = mesh
 
     def _epochs(self, train_state, batch, loss_of, generator):
         """``epochs_per_batch`` epochs of ``num_minibatches`` clipped Adam
-        steps; each minibatch is the (B / num_minibatches) environments
-        ``idx`` of a fresh permutation, and ``loss_of(idx)`` its (loss,
-        metrics).  Returns the last minibatch's metrics."""
-        cfg = self.cfg
-        if batch % cfg.num_minibatches:
+        steps on this process's ``batch`` environments; each minibatch is
+        the environments ``idx`` of :func:`minibatch_rows` on fresh
+        per-shard permutations, and ``loss_of(idx)`` its (loss, metrics).
+        Returns the last minibatch's metrics."""
+        cfg, mesh = self.cfg, self.mesh
+        world = mesh.world_size if mesh is not None else 1
+        held = cfg.data_shards // world  # the shards this process holds
+        if batch % held:
             raise ValueError(f"{batch} environments do not divide into "
-                             f"{cfg.num_minibatches} minibatches")
-        mb = batch // cfg.num_minibatches
+                             f"{held} data shards")
+        local = batch // held
+        if local % cfg.num_minibatches:
+            raise ValueError(f"{local} environments a data shard do not "
+                             f"divide into {cfg.num_minibatches} minibatches")
+        mb = local // cfg.num_minibatches
         device = train_state.spe.device
+        params = train_state.optimizer.params
         for _ in range(cfg.epochs_per_batch):
-            perm = torch.randperm(batch, generator=generator, device=device)
+            # Every process draws every shard's permutation: the
+            # generators stay in step, and each rank keeps its own.
+            perms = torch.stack([
+                torch.randperm(local, generator=generator, device=device)
+                for _ in range(cfg.data_shards)])
+            if world > 1:
+                perms = perms[mesh.rank:mesh.rank + 1]
             for k in range(cfg.num_minibatches):
-                loss, metrics = loss_of(perm[k * mb:(k + 1) * mb])
-                for p in train_state.optimizer.params:
+                loss, metrics = loss_of(minibatch_rows(perms, k, mb))
+                for p in params:
                     p.grad = None
                 loss.backward()
+                if mesh is not None:
+                    mesh.average_gradients(params)
                 train_state.optimizer.step()
         return metrics
 
@@ -441,7 +496,7 @@ class PPO:
         return self._epochs(
             train_state, traj.action.shape[1],
             lambda idx: ppo_loss(self.cfg, train_state.net, train_state.spe,
-                                 *(x[:, idx] for x in data)),
+                                 *(x[:, idx] for x in data), mesh=self.mesh),
             generator)
 
     def _finish(self, train_state, traj, returns, advantages, metrics,
@@ -492,7 +547,7 @@ class RecurrentPPO(PPO):
             lambda idx: ppo_loss_recurrent(
                 self.cfg, train_state.net, train_state.spe,
                 *(x[:, idx] for x in data), tuple(c[idx] for c in carry0),
-                *(x[:, idx] for x in rest)),
+                *(x[:, idx] for x in rest), mesh=self.mesh),
             generator)
 
     def train_batch(self, train_state, env_state, obs, carry, bank,

@@ -147,11 +147,14 @@ def _in_dir(monkeypatch, path):
      "--num-envs", "4", "--steps", "16", "--view", "17"],
     ["play", "levels.yaml"], ["print", "levels.yaml"]])
 def test_procgen_commands_match_jax(tmp_path, monkeypatch, capsys, argv):
+    from safelife_torch.levels import iterator as titer
     from safelife_torch.levels import loader as tloader
     from safelife_tpu import procgen as jprocgen
     from safelife_tpu.interactive import play as jplay
     from safelife_tpu.levels import loader as jloader
 
+    # A deadline for the spawned pool of ``--workers 2``.
+    monkeypatch.setattr(titer, "WORKER_TIMEOUT_S", 120)
     if argv[0] == "train":
         _train_task(tmp_path, monkeypatch, argv, jprocgen)
         return

@@ -13,6 +13,7 @@ continues this process's numpy stream, so it gives the JAX package's
 in-process levels.
 """
 
+import multiprocessing
 import os
 
 import numpy as np
@@ -160,9 +161,20 @@ def test_loader_procgen_entries_match_jax(tmp_path, monkeypatch, paths):
     assert not np.array_equal(games[0][0].board, games[0][1].board)
 
 
-def test_loader_spawn_pool_and_archive_utilities(tmp_path):
+def test_loader_pool_deadline_kills_its_workers(monkeypatch):
+    """A game the pool does not deliver in time raises TimeoutError, and
+    the workers are gone when it does (no test waits on a stuck pool)."""
+    monkeypatch.setattr(titer, "WORKER_TIMEOUT_S", 1e-3)
+    pool = titer.safelife_loader("append-still-easy", num_workers=2)
+    with pytest.raises(TimeoutError):
+        next(pool)
+    assert not multiprocessing.active_children()
+
+
+def test_loader_spawn_pool_and_archive_utilities(tmp_path, monkeypatch):
     """Two spawned workers reseed every level; gen_many and gen_benchmarks
     in process equal the JAX package's, and their archives load."""
+    monkeypatch.setattr(titer, "WORKER_TIMEOUT_S", 120)
     pool = titer.safelife_loader("append-still-easy", num_workers=2,
                                  max_queue=2)
     try:

@@ -38,12 +38,17 @@ assert not loaded, loaded
 print(" ".join(names))
 """
 
-# Modules the import check must reach (the level supply among them).
+# Modules the import check must reach (the level supply and the parallel
+# modules among them).
 REQUIRED = ("safelife_torch.procgen", "safelife_torch.procgen.batched",
             "safelife_torch.procgen.generate", "safelife_torch.procgen.native",
             "safelife_torch.procgen.presets",
             "safelife_torch.levels.device_bank",
-            "safelife_torch.training.curricula")
+            "safelife_torch.training.curricula",
+            "safelife_torch.parallel", "safelife_torch.parallel.mesh",
+            "safelife_torch.parallel.distributed",
+            "safelife_torch.parallel.halo",
+            "safelife_torch.utils.profiling")
 
 
 def test_port_and_chip_smoke_import_without_jax():

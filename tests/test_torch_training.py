@@ -433,9 +433,34 @@ def test_trainer_refuses_unported_options(tmp_path, kw, item):
         tdriver.Trainer(cfg, bank=bank, device="cpu")
 
 
-def test_data_shards_refused():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tdriver.Trainer(tdriver.TrainerConfig(num_envs=8, view_shape=VIEW),
-                        tppo.PPOConfig(data_shards=2),
-                        bank=tsynth.synth_bank(2, h=13, w=13, device="cpu"),
-                        device="cpu")
+@pytest.mark.parametrize("shards,num_minibatches,error,recurrent", [
+    (2, 2, None, False), (2, 2, None, True), (3, 2, "data shards", False),
+    (2, 3, "minibatches", False)])
+def test_data_shards_train_in_one_process(shards, num_minibatches, error,
+                                          recurrent):
+    """``data_shards`` trains in one process, feed-forward and recurrent
+    (the shards' minibatches, see tests/test_torch_parallel.py); a batch
+    that does not divide into the shards, or a shard that does not divide
+    into the minibatches, raises."""
+    tc = tdriver.TrainerConfig(num_envs=8, view_shape=VIEW, time_limit=5,
+                               report_every=32, record_videos=False,
+                               recurrent=recurrent)
+    pc = tppo.PPOConfig(steps_per_env=4, num_minibatches=num_minibatches,
+                        epochs_per_batch=2, data_shards=shards)
+    tr = tdriver.Trainer(tc, pc, device="cpu",
+                         bank=tsynth.synth_bank(2, h=13, w=13, device="cpu"))
+    before = {k: v.clone() for k, v in tr.net.named_parameters()
+              if v.requires_grad}
+    if error:
+        with pytest.raises(ValueError, match=error):
+            tr.train(total_steps=32)
+        return
+    seen = []
+    tr.train(total_steps=64, progress_fn=lambda s, m: seen.append(m))
+    assert tr.global_step() == 64 and tr.train_state.update_step == 2
+    assert tr.train_state.optimizer.count == 2 * 2 * num_minibatches
+    for m in seen:
+        for k, v in m.items():
+            assert np.all(np.isfinite(v)), k
+    after = dict(tr.net.named_parameters())
+    assert all(not torch.equal(v, after[k]) for k, v in before.items())
