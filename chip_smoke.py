@@ -146,8 +146,21 @@ Phases, each an assertion that ends the run on failure:
    and on the two ranks, (64, 32, 8) soups with spawners and (512, 512,
    64) boards, 4 steps, bit-equal to K5 on the whole board; and
    ``PhaseTimer`` and ``trace`` around one batch;
-13. one JSON line listing the kernels (the launches of phases 5, 8, 9, 10,
-   11 and 12, both ranks' included), and last the result line; before it
+13. the JAX round's scripts (``python -m safelife_torch.scripts.*``):
+   ``microbench`` in both modes at its own sizes (B = 4096, 64 chained
+   steps in a CUDA graph), every row's loop then against the same loop on
+   the plain path, bit for bit; ``validate_sinkhorn`` on append-still and
+   prune-spawn at full width (100 levels, time limit 1000, 250 samples)
+   with the seconds of the rollout, the co-evolution, the Sinkhorn EMD
+   and the exact LP, its errors beside the JAX round's; ``eval_backend_
+   diff --keys 1`` and ``cpu_verify_finals`` (time limit 200) on phase 8's
+   64-environment run (each eval configuration in a subprocess on its own
+   device, the card's plain path equal to its kernel path); ``scaling_report`` at
+   sizes 1 (NCCL) and 2 (gloo ranks sharing the card); the three level-data
+   scripts into a temporary folder with ``--check``, and the rebuilt v0.1
+   suite through ``run_benchmark`` on the card;
+14. one JSON line listing the kernels (the launches of phases 5 and 8-13,
+   both ranks' of phase 12 included), and last the result line; before it
    the run fails if the build log shows a K1-K8, S3-S5, R1 or view kernel
    instantiation that spills.
 
@@ -155,10 +168,13 @@ Exits nonzero, printing no result, when no CUDA device is present.
 """
 
 import collections
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -1731,12 +1747,15 @@ def profile_batch(trainer, state, obs):
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {kname[:100]}")
 
 
-def training(dev, smi):
-    """Phase 8; returns the training path's launches."""
+def training(dev, smi, keep):
+    """Phase 8; returns the training path's launches.  The run at
+    TRAIN_ENVS[0] environments is copied to ``keep`` (phase 13 replays
+    it)."""
     check_training_env(dev)
     check_model(dev)
     with tempfile.TemporaryDirectory() as logdir:
         launches = train_path(dev, logdir)
+        shutil.copytree(f"{logdir}/run{TRAIN_ENVS[0]}", keep)
         learner_throughput(dev, smi)
     return launches
 
@@ -3542,6 +3561,296 @@ def data_parallel(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the JAX round's scripts on the card.
+# ---------------------------------------------------------------------------
+
+# The suites validate_sinkhorn runs at full width (100 levels, time limit
+# 1000, 250 samples): one spawnless, one whose spawns make the
+# co-evolution random.  The JAX round's CPU figures for the same
+# (random-policy) validation are read from its results file beside them.
+VALIDATE_SUITES = ("append-still", "prune-spawn")
+JAX_SINKHORN = "results/sinkhorn_validation.json"
+# A gate on the card's Sinkhorn against the exact LP, per suite: the mean
+# and largest relative error of the per-episode totals (the JAX round's
+# largest over its eight suites: mean 0.0031, max 0.0289).
+SINKHORN_MEAN_REL, SINKHORN_MAX_REL = 0.01, 0.05
+# The run of phase 8 that phase 13's eval scripts replay, under a run
+# directory with its .done marker.
+SCRIPT_RUN = "append-still-s0"
+SCALING_SIZES = (1, 2)
+# cpu_verify_finals' episodes on the card's host CPU, cut from the eval's
+# 1000 steps (25-34 s at full depth): the one depth this phase cuts.
+FINALS_TIME_LIMIT = 200
+V01_TIME_LIMIT = 100
+V01_LEVELS = 30
+
+
+@contextlib.contextmanager
+def stage_seconds(seconds, *targets):
+    """Add the seconds of every call of each ``(module, name)`` function
+    (the card synchronised before and after) to ``seconds[name]`` while
+    inside; the functions are restored on exit."""
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+    try:
+        for m, n, fn in saved:
+            setattr(m, n, timed(n, fn))
+        yield seconds
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def state_tensors(out):
+    """An env loop's (state, obs) as a list of tensors to compare."""
+    state, obs = out
+    return [getattr(state, f.name) for f in dataclasses.fields(state)
+            if torch.is_tensor(getattr(state, f.name))] + [obs]
+
+
+def check_microbench(dev, smi):
+    """Both modes of ``scripts.microbench`` at their own sizes, then each
+    row's chained loop against the same loop on the plain path, bit for
+    bit (the uniform row's fields drawn before, outside a graph); returns
+    the rows' launches (each row's warm-up and captured run)."""
+    from safelife_torch.scripts import microbench as mb
+    rows, launched = counted(lambda: {**mb.main(), **mb.op_bench()})
+    for name, us in rows.items():
+        route = mb.OP_ROUTES.get(name)
+        print(f"microbench {name}{f' [{route}]' if route else ''}: "
+              f"{us:.2f} us/step, {mb.B / us:.3f} M env-steps/s (B = "
+              f"{mb.B}, {mb.STEPS} chained steps in a CUDA graph, best of "
+              f"{scripts.REPEATS}); launches {scripts.ROW_LAUNCHES[name]} on "
+              f"{smi}")
+    bank, lv = mb.load(dev)
+    spawn = torch.zeros(lv.board.shape, dtype=torch.bool, device=dev)
+    assert_bit_equal([mb.ca_fixed(spawn)(lv.board)],
+                     [mb.ca_fixed(spawn, plain=True)(lv.board)],
+                     "microbench CA advance (fixed spawn field)")
+    gen = torch.Generator(dev).manual_seed(3)
+    fields = torch.rand((mb.STEPS,) + tuple(lv.board.shape), generator=gen,
+                        device=dev) < mb.SPAWN_RATE
+    assert_bit_equal([mb.ca_uniform(fields)(lv.board)],
+                     [mb.ca_uniform(fields, plain=True)(lv.board)],
+                     "microbench CA advance + uniform field")
+    for name, cfg in mb.ENV_ROWS:
+        env = BatchedSafeLifeEnv(EnvConfig(**cfg), device=dev)
+        state = env.reset_all(bank, mb.B, torch.Generator(dev).manual_seed(0))
+        got, want = (state_tensors(mb.env_steps(
+            env, bank, torch.Generator(dev).manual_seed(4), plain=plain)(
+                state)) for plain in (False, True))
+        assert_bit_equal(got, want, f"microbench {name}")
+    agents = mb.op_inputs(lv, torch.Generator(dev).manual_seed(0))
+    kernels = mb.op_loops(bank, lv.goals, *agents)
+    plain = mb.op_loops(bank, lv.goals, *agents, plain=True)
+    for name, run in kernels.items():
+        x = (torch.arange(mb.B, dtype=torch.int32, device=dev) % 100
+             if name == "bank.take" else lv.board)
+        assert_bit_equal([run(x)], [plain[name](x)], f"microbench {name}")
+    print(f"microbench: every row's chained loop == the same loop on the "
+          f"plain path, bit for bit (the CA rows, the three env rows' final "
+          f"states and observations, the six ops rows); launches {launched}")
+    return launched
+
+
+def check_validate_sinkhorn(dev, smi, outdir):
+    """``validate_sinkhorn.main`` at full width on VALIDATE_SUITES, the
+    seconds of its four stages, its errors beside the JAX round's."""
+    from safelife_torch import side_effects as se
+    from safelife_torch.scripts import validate_sinkhorn as vs
+    with open(JAX_SINKHORN) as fh:
+        jax_round = json.load(fh)
+    out = os.path.join(outdir, "sinkhorn_validation.json")
+    launches = collections.Counter()
+    for suite in VALIDATE_SUITES:
+        seconds = {}
+        with stage_seconds(seconds, (vs, "rollout"),
+                           (se, "accumulate_distributions"),
+                           (vs, "sinkhorn_scores"), (vs, "exact_scores")):
+            results, launched = counted(lambda: vs.main([suite], out=out,
+                                                         device=dev))
+        launches.update(launched)
+        r, ref = results[suite], jax_round[suite]
+        assert r["episodes"] == 100 and r["scored_pairs"] > 0, r
+        assert r["mean_rel_err"] < SINKHORN_MEAN_REL, r
+        assert r["max_rel_err"] < SINKHORN_MAX_REL, r
+        print(f"validate_sinkhorn {suite} (100 levels, time limit 1000, "
+              f"{vs.SAMPLES} samples, random policy): rollout "
+              f"{seconds['rollout']:.3f} s, co-evolution "
+              f"{seconds['accumulate_distributions']:.3f} s, Sinkhorn "
+              f"{seconds['sinkhorn_scores']:.3f} s, exact LP on the host "
+              f"{seconds['exact_scores']:.3f} s ({r['scored_pairs']} pairs);"
+              f" Sinkhorn vs LP rel err mean {r['mean_rel_err']:.4f}, p95 "
+              f"{r['p95_rel_err']:.4f}, max {r['max_rel_err']:.4f} (the JAX "
+              f"round's CPU run: {ref['mean_rel_err']:.4f} / "
+              f"{ref['p95_rel_err']:.4f} / {ref['max_rel_err']:.4f}); mean "
+              f"exact {r['mean_exact']:.3f}, Sinkhorn {r['mean_sinkhorn']:.3f}"
+              f"; launches {launched} on {smi}")
+    with open(out) as fh:
+        assert sorted(json.load(fh)) == sorted(VALIDATE_SUITES)
+    return launches
+
+
+def check_eval_scripts(dev, smi, runs, outdir):
+    """``eval_backend_diff --keys 1`` and ``cpu_verify_finals`` on phase 8's
+    run: every configuration on its own device, and the card's plain path
+    giving the kernel path's result for the same key."""
+    from safelife_torch.scripts import cpu_verify_finals
+    from safelife_torch.scripts import eval_backend_diff as ebd
+    logdir = os.path.join(runs, SCRIPT_RUN)
+    t = time.perf_counter()
+    report = ebd.main(logdir, keys=1,
+                      out=os.path.join(outdir, "eval_backend_diff.json"))
+    seconds = time.perf_counter() - t
+    rows = {r["config"]: r for r in report["rows"]}
+    assert sorted(rows) == sorted(ebd.CONFIGS), rows
+    for config, r in rows.items():
+        assert len(r["perf"]) == 100 and np.isfinite(r["perf"]).all(), config
+        print(f"eval_backend_diff {config} key 0: mean_perf "
+              f"{r['mean_perf']:.4f}, mean_reward {r['mean_reward']:.4f}, "
+              f"mean_length {r['mean_length']:.1f}")
+    same = ("perf", "mean_length", "mean_reward")
+    assert all(rows["card plain path"][k] == rows["card default"][k]
+               for k in same), (rows["card plain path"], rows["card default"])
+    print(f"eval_backend_diff of {SCRIPT_RUN} (phase 8's 64-env run, view "
+          f"{TRAIN_VIEW}), 5 configurations x 1 key, each a subprocess, "
+          f"five at once: "
+          f"{seconds:.1f} s; the card's plain path == its kernel path level "
+          f"for level (same key) on {smi}")
+    t = time.perf_counter()
+    finals = cpu_verify_finals.main(runs, time_limit=FINALS_TIME_LIMIT)
+    seconds = time.perf_counter() - t
+    assert list(finals) == [SCRIPT_RUN], finals
+    assert all(np.isfinite(v) for v in finals[SCRIPT_RUN].values())
+    assert cpu_verify_finals.main(runs) == finals
+    print(f"cpu_verify_finals on the CPU: {finals[SCRIPT_RUN]} in "
+          f"{seconds:.1f} s (time limit {FINALS_TIME_LIMIT}: cut from 1000, "
+          f"the CPU's depth); a rerun keeps the entry")
+
+
+def check_scaling(dev, smi, outdir):
+    """``scaling_report`` at SCALING_SIZES: one NCCL rank, then two gloo
+    ranks sharing the card."""
+    from safelife_torch.scripts import scaling_report as sr
+    t = time.perf_counter()
+    report = sr.main(SCALING_SIZES, device=dev,
+                     out=os.path.join(outdir, "scaling.json"))
+    seconds = time.perf_counter() - t
+    base = report["sizes"][0]["hlo_flops_per_device"]
+    for row in report["sizes"]:
+        for f in row["flops_per_rank"]:
+            assert abs(f - base) <= 0.10 * base, report
+        moved = row["collective_bytes"]
+        assert 0 < row["allreduce_bytes_per_sync"] <= 1.5 * report[
+            "param_bytes"], row
+        assert sum(v for k, v in moved.items() if k != "all-reduce") < 100_000
+    print(f"scaling_report sizes {SCALING_SIZES} ({sr.ENVS_PER_DEVICE} envs "
+          f"a rank; NCCL at 1, gloo ranks sharing the card at 2): flops a "
+          f"rank {[r['flops_per_rank'] for r in report['sizes']]}, "
+          f"all-reduce a sync "
+          f"{[r['allreduce_bytes_per_sync'] for r in report['sizes']]} "
+          f"bytes (parameters {report['param_bytes']}), nothing else; model "
+          f"efficiency at {sr.PROD_ENVS_PER_DEVICE} envs "
+          f"{[r['model_efficiency_prod'] for r in report['sizes']]}; "
+          f"{seconds:.1f} s on {smi}")
+
+
+def check_level_scripts(dev, smi, outdir):
+    """The three level-data scripts into a temporary folder with
+    ``--check``, then the rebuilt v0.1 suite through ``run_benchmark`` on
+    the card."""
+    from safelife_torch import benchmarking
+    from safelife_torch.scripts import (level_archives, make_levels,
+                                        make_puzzles, make_v01_levels)
+    out = os.path.join(outdir, "levels")
+    for maker, subdirs in ((make_puzzles, ("puzzles",)),
+                             (make_levels, make_levels.SUBDIRS),
+                             (make_v01_levels, (make_v01_levels.S,))):
+        log = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            level_archives.main(maker.build, subdirs, "",
+                                ["--out", out, "--check"])
+        lines = log.getvalue().splitlines()
+        print(f"{maker.__name__.rsplit('.', 1)[1]} --check: "
+              f"{sum(ln.startswith('wrote') for ln in lines)} files in "
+              f"{time.perf_counter() - t:.2f} s; {lines[-1]}")
+    archives = [f for _, _, files in os.walk(out) for f in files
+                if f.endswith(".npz")]
+    assert len(archives) == 79, len(archives)
+    bank = loader.load_bank(os.path.join(out, "benchmarks", "v0.1"),
+                            device=dev)
+    assert bank.num_levels == V01_LEVELS
+    t = time.perf_counter()
+    res, launched = counted(lambda: benchmarking.run_benchmark(
+        bank, benchmarking.random_policy(),
+        generator=torch.Generator(dev).manual_seed(0),
+        time_limit=V01_TIME_LIMIT))
+    assert len(res["performance"]) == V01_LEVELS
+    for name in ("performance", "reward", "length"):
+        assert np.isfinite(res[name]).all(), name
+    print(f"the rebuilt v0.1 suite ({V01_LEVELS} levels, 25x25) through "
+          f"run_benchmark on the card, random policy, time limit "
+          f"{V01_TIME_LIMIT}: {time.perf_counter() - t:.2f} s, mean "
+          f"performance {res['performance'].mean():.4f}, length "
+          f"{res['length'].mean():.1f}; launches {launched} on {smi}")
+    return launched
+
+
+def jax_round_files():
+    """A digest of each file the JAX round's scripts write (SCALING.json,
+    results/*.json, the packaged levels): the ports write elsewhere."""
+    import glob
+    import hashlib
+    paths = ["SCALING.json", *glob.glob("results/*.json"), *glob.glob(
+        os.path.join(loader.PACKAGED_LEVELS, "**", "*"), recursive=True)]
+    out = {}
+    for path in sorted(p for p in paths if os.path.isfile(p)):
+        with open(path, "rb") as fh:
+            out[path] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def scripts_phase(dev, smi, runs):
+    """Phase 13; returns its launches in this process (the bank loads, the
+    microbench rows, the validation, the v0.1 eval; not the comparisons',
+    nor those of the subprocesses the eval and scaling scripts start)."""
+    launches = collections.Counter()
+    before = jax_round_files()
+    with tempfile.TemporaryDirectory() as outdir:
+        for step, fn in (
+                ("microbench", lambda: check_microbench(dev, smi)),
+                ("validate_sinkhorn",
+                 lambda: check_validate_sinkhorn(dev, smi, outdir)),
+                ("eval_backend_diff and cpu_verify_finals",
+                 lambda: check_eval_scripts(dev, smi, runs, outdir)),
+                ("scaling_report", lambda: check_scaling(dev, smi, outdir)),
+                ("level data", lambda: check_level_scripts(dev, smi, outdir))):
+            t = time.perf_counter()
+            launches.update(fn() or {})
+            print(f"phase 13 {step}: {time.perf_counter() - t:.1f} s")
+    for name in ("K1_action", "K2_advance_fold[static_spawnless]",
+                 "K3_advance_noreset[static_spawnless]",
+                 "K5_advance_with_field", "S4_view_unpack",
+                 "K4_advance_spawnless"):
+        assert launches.get(name, 0) > 0, (name, launches)
+    assert jax_round_files() == before, "a script wrote the JAX round's files"
+    print(f"phase 13 launches {dict(launches)}; the {len(before)} files of "
+          f"the JAX round's scripts (SCALING.json, results/*.json, the "
+          f"packaged levels) unchanged")
+    return launches
+
+
 # The kernels held to 0 spills, by library: entry-function name fragments
 # and how many instantiations the build log must show.  K1: 5 block
 # widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
@@ -3669,10 +3978,27 @@ def main():
             env.reset_all(still, SCRIPT_BATCH, gen))
     print(f"phase 7: {time.perf_counter() - t:.1f} s")
 
-    t = time.perf_counter()
-    trained = training(dev, smi)
-    print(f"phase 8: {time.perf_counter() - t:.1f} s")
+    # Phase 8's run, finished (its .done marker), for phase 13's scripts.
+    runs = tempfile.mkdtemp()
+    try:
+        t = time.perf_counter()
+        trained = training(dev, smi, os.path.join(runs, SCRIPT_RUN))
+        open(os.path.join(runs, SCRIPT_RUN + ".done"), "w").close()
+        print(f"phase 8: {time.perf_counter() - t:.1f} s")
+        kernels = later_phases(dev, smi, runs, trained, launches, timings,
+                               paths, script)
+    finally:
+        shutil.rmtree(runs)
+    print(json.dumps({"kernels": kernels}))
+    assert not spilled, f"kernel instantiations spill: {spilled}"
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
 
+
+def later_phases(dev, smi, runs, trained, launches, timings, paths, script):
+    """Phases 9-13, then the kernels line's entries: each kernel's
+    launches on the main path and phases 8-13 beside its times."""
     t = time.perf_counter()
     evaluated = evaluation(dev, smi)
     print(f"phase 9: {time.perf_counter() - t:.1f} s")
@@ -3692,17 +4018,22 @@ def main():
     sharded = data_parallel(dev, smi)
     print(f"phase 12: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    scripted = scripts_phase(dev, smi, runs)
+    print(f"phase 13: {time.perf_counter() - t:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = timings[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             # The main path's launches, the training path's, the
-            # evaluation path's, the game layer's, the level supply's and
-            # the data-parallel training's.
+            # evaluation path's, the game layer's, the level supply's, the
+            # data-parallel training's and the scripts'.
             launches=launches[name] + trained.get(name, 0)
             + evaluated.get(name, 0) + played.get(name, 0)
-            + supplied.get(name, 0) + sharded.get(name, 0), max_abs_err=err,
+            + supplied.get(name, 0) + sharded.get(name, 0)
+            + scripted.get(name, 0), max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             # R1's plain version is one PyTorch call (a sum).
@@ -3711,19 +4042,17 @@ def main():
         err, ms, plain_ms, bound_ms, bound_by, library_ms = script[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            # T1 also runs in the game layer's selftest and training, and
-            # in the level supply's and the data-parallel trainers.
+            # T1 also runs in the game layer's selftest and training, in
+            # the level supply's and the data-parallel trainers, and in
+            # the scripts' phase.
             launches=paths[path][counter] + (
                 played.get(counter, 0) + supplied.get(counter, 0)
-                + sharded.get(counter, 0) if path == "bench" else 0),
+                + sharded.get(counter, 0) + scripted.get(counter, 0)
+                if path == "bench" else 0),
             max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms))
-    print(json.dumps({"kernels": kernels}))
-    assert not spilled, f"kernel instantiations spill: {spilled}"
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+    return kernels
 
 
 if __name__ == "__main__":

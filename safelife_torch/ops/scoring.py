@@ -5,6 +5,8 @@ Point-table lookups are plain indexing into the flattened 8x8 table: a
 gather is cheap on the GPU, so the TPU's select-chain is not needed.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -14,10 +16,14 @@ _POINTS_FLAT = np.asarray(C.POINT_TABLE.reshape(-1), np.int32)
 _SIGN_FLAT = np.asarray(np.sign(C.POINT_TABLE).reshape(-1), np.int32)
 # Best achievable sign-points for each goal color (row-max of the sign table).
 _MAX_SIGN = np.asarray(np.sign(C.POINT_TABLE).max(axis=1), np.int32)
+_TABLES = {"points": _POINTS_FLAT, "sign": _SIGN_FLAT, "max_sign": _MAX_SIGN}
 
 
-def _table(values, like):
-    return torch.tensor(values, dtype=torch.int32, device=like.device)
+@functools.lru_cache(maxsize=None)
+def _table(name, device):
+    """The constant table ``name`` on ``device``, copied there once: a host
+    copy on every call would also break the capture of a CUDA graph."""
+    return torch.tensor(_TABLES[name], dtype=torch.int32, device=device)
 
 
 def _color_idx(x):
@@ -30,7 +36,7 @@ def _pair_idx(board, goals):
 
 def current_points(board, goals):
     """Sum of point_table[goal_color, cell_color] over live cells -> (B,)."""
-    pts = _table(_POINTS_FLAT, board)[_pair_idx(board, goals)]
+    pts = _table("points", board.device)[_pair_idx(board, goals)]
     pts = pts * (board.to(torch.int32) & 1)
     return pts.sum(dim=(0, 1), dtype=torch.int32)
 
@@ -46,14 +52,14 @@ def _perf_mask(board):
 
 def performance_score(board, goals):
     """Unit-reward ("sign table") score of a board state -> (B,) int32."""
-    pts = _table(_SIGN_FLAT, board)[_pair_idx(board, goals)]
+    pts = _table("sign", board.device)[_pair_idx(board, goals)]
     pts = pts * _perf_mask(board).to(torch.int32)
     return pts.sum(dim=(0, 1), dtype=torch.int32)
 
 
 def possible_score(goals):
     """Maximum achievable unit-reward score given goal colors -> (B,)."""
-    return _table(_MAX_SIGN, goals)[_color_idx(goals)].sum(
+    return _table("max_sign", goals.device)[_color_idx(goals)].sum(
         dim=(0, 1), dtype=torch.int32)
 
 

@@ -18,9 +18,22 @@ One more reads the built kernels' machine code (``cuobjdump``), on the
 machine that builds them:
 
     python -m safelife_torch.scripts.sass_count     # SASS instructions a loop and cell
+
+The ports of the JAX round's other scripts, each writing where its
+``--out`` points (by default under :data:`RESULTS`):
+
+    python -m safelife_torch.scripts.microbench         # the step's parts
+    python -m safelife_torch.scripts.validate_sinkhorn  # Sinkhorn vs the LP
+    python -m safelife_torch.scripts.cpu_verify_finals  # finals on the CPU
+    python -m safelife_torch.scripts.eval_backend_diff  # an eval gap's causes
+    python -m safelife_torch.scripts.scaling_report     # data-parallel profile
+    python -m safelife_torch.scripts.make_puzzles       # the level data
+    python -m safelife_torch.scripts.make_levels
+    python -m safelife_torch.scripts.make_v01_levels
 """
 
 import collections
+import os
 import time
 
 import torch
@@ -28,6 +41,10 @@ import torch
 from ..ops import _build
 from ..ops.obs import obs_sum
 
+# Where the scripts write their results by default (the JAX round's files
+# under results/ and SCALING.json stay as they are).
+RESULTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "results", "torch")
 # Timed runs per row after one warm-up run; the best counts.
 REPEATS = 3
 # Row name -> the kernel launches its wrappers counted in that row: the

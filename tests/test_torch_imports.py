@@ -38,8 +38,8 @@ assert not loaded, loaded
 print(" ".join(names))
 """
 
-# Modules the import check must reach (the level supply and the parallel
-# modules among them).
+# Modules the import check must reach (the level supply, the parallel
+# modules and the ports of the JAX round's scripts among them).
 REQUIRED = ("safelife_torch.procgen", "safelife_torch.procgen.batched",
             "safelife_torch.procgen.generate", "safelife_torch.procgen.native",
             "safelife_torch.procgen.presets",
@@ -48,7 +48,16 @@ REQUIRED = ("safelife_torch.procgen", "safelife_torch.procgen.batched",
             "safelife_torch.parallel", "safelife_torch.parallel.mesh",
             "safelife_torch.parallel.distributed",
             "safelife_torch.parallel.halo",
-            "safelife_torch.utils.profiling")
+            "safelife_torch.utils.profiling",
+            "safelife_torch.scripts.microbench",
+            "safelife_torch.scripts.validate_sinkhorn",
+            "safelife_torch.scripts.cpu_verify_finals",
+            "safelife_torch.scripts.eval_backend_diff",
+            "safelife_torch.scripts.scaling_report",
+            "safelife_torch.scripts.level_archives",
+            "safelife_torch.scripts.make_levels",
+            "safelife_torch.scripts.make_puzzles",
+            "safelife_torch.scripts.make_v01_levels")
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -58,7 +67,7 @@ def test_port_and_chip_smoke_import_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 57, proc.stdout
+    assert len(names) >= 66, proc.stdout
     assert set(REQUIRED) <= set(names), set(REQUIRED) - set(names)
 
 
@@ -87,3 +96,48 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     assert not os.path.exists(tmp_path / "run")
+
+
+def test_summarize_runs_parses_the_port_eval_line(tmp_path, caplog):
+    """``scripts/summarize_runs.py`` needs no port: its ``LINE`` parses the
+    ``eval @ N`` line the port's ``Trainer.evaluate`` logs (its side-effect
+    field included), as ``parse_log`` reads it from a training log."""
+    import importlib.util
+    import logging
+
+    import numpy as np
+
+    from safelife_torch.levels import loader, synth
+    from safelife_torch.training.driver import Trainer, TrainerConfig
+    from safelife_torch.training.ppo import PPOConfig
+
+    spec = importlib.util.spec_from_file_location(
+        "summarize_runs", os.path.join(ROOT, "scripts", "summarize_runs.py"))
+    summarize_runs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(summarize_runs)
+
+    suite = tmp_path / "small.npz"
+    np.savez(suite, levels=np.load(os.path.join(
+        loader.PACKAGED_LEVELS, "benchmarks", "v1.0",
+        "append-still.npz"))["levels"][:8])
+    torch.set_num_threads(1)
+    trainer = Trainer(
+        TrainerConfig(num_envs=4, view_shape=(17, 17), time_limit=5,
+                      record_videos=False, eval_suite=str(suite),
+                      eval_side_effect_samples=4),
+        PPOConfig(steps_per_env=2, num_minibatches=1, epochs_per_batch=1),
+        bank=synth.synth_bank(2, h=13, w=13, device="cpu"), device="cpu")
+    with caplog.at_level(logging.INFO, logger="safelife_torch"):
+        results = trainer.evaluate()
+    lines = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("eval @")]
+    assert len(lines) == 1, lines
+    log = tmp_path / "train.log"
+    log.write_text("INFO " + lines[0] + "\n")
+    (row,) = summarize_runs.parse_log(str(log))
+    assert row["step"] == trainer.global_step()
+    assert row["mean_perf"] == round(float(np.mean(results["performance"])), 3)
+    assert row["mean_length"] == round(float(np.mean(results["length"])), 1)
+    assert row["side_effects"] == round(
+        float(np.mean(results["side_effects"])), 3)
+    assert summarize_runs.LINE.search(lines[0]).group(2) == "8"
