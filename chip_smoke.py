@@ -98,12 +98,13 @@ Phases, each an assertion that ends the run on failure:
    spawns, on append-still, append-dynamic and prune-spawn, 20 steps
    with resets, bit for bit, and K1 + K2 and K1 + K3 against their plain
    versions along rollouts at those widths; ``record_episode`` through
-   the training stack at B = 1 on the kernels against the plain step (a
-   ``SafeLifeCNN`` of seed 0, view 33x33, time limit 1000, append-still
-   and prune-spawn), bit for bit, with the seconds of its step loop, of
-   ``render_board`` over its frames and of the GIF encoder, and the file
-   sizes; the host ``SafeLifeGame`` against the card's env at B = 1 on 8
-   append-still levels, 60 seeded steps each; and ``python -m
+   the training stack at B = 1 on the kernels (a ``SafeLifeCNN`` of seed
+   0, view 33x33, time limit 1000, append-still and prune-spawn) with the
+   seconds of its step loop, of ``render_board`` over its frames and of
+   the GIF encoder, and the file sizes, its first 250 steps against the
+   plain step's, bit for bit (frames and each step's reward); the host
+   ``SafeLifeGame`` against the card's env at B = 1 on 8 append-still
+   levels, 60 seeded steps each; and ``python -m
    safelife_torch`` in process: ``train`` (3 batches at 64 environments,
    ``TrainerConfig``'s ``record_videos``) writing a checkpoint and the
    episode's npz and GIF, ``bench --side-effects 16`` of that run,
@@ -153,13 +154,26 @@ Phases, each an assertion that ends the run on failure:
    prune-spawn at full width (100 levels, time limit 1000, 250 samples)
    with the seconds of the rollout, the co-evolution, the Sinkhorn EMD
    and the exact LP, its errors beside the JAX round's; ``eval_backend_
-   diff --keys 1`` and ``cpu_verify_finals`` (time limit 200) on phase 8's
+   diff --keys 1`` and ``cpu_verify_finals`` (both at time limit 200) on phase 8's
    64-environment run (each eval configuration in a subprocess on its own
    device, the card's plain path equal to its kernel path); ``scaling_report`` at
    sizes 1 (NCCL) and 2 (gloo ranks sharing the card); the three level-data
    scripts into a temporary folder with ``--check``, and the rebuilt v0.1
    suite through ``run_benchmark`` on the card;
-14. one JSON line listing the kernels (the launches of phases 5 and 8-13,
+14. the launch tooling (``python -m safelife_torch.scripts.{launch,
+   remote_job,sweep,summarize_runs,run_tb}``): ``launch pod`` (2 hosts x 1
+   card), ``remote_job start`` and ``sweep --round r5`` with
+   ``--dry-run``; a sweep of two runs (append-still-s0 and
+   append-still+penalty0.5+lstm-s1, 64 environments, 2 batches each, the
+   final eval and video) each through ``launch local --nproc 1``, one
+   NCCL rank in a subprocess of ``launch local`` (the command line
+   ``--dry-run`` prints), the first run's final parameters bit-equal to
+   ``train`` in this process with its arguments (which skips the video
+   after its final checkpoint), with both runs' env-steps/s of the second batch and NCCL's bring-up
+   seconds; a second sweep call that skips both; the tail
+   (``cpu_verify_finals`` at time limit 200, ``summarize_runs`` into a
+   temporary RESULTS.md holding both rows) and ``run_tb``'s summary;
+15. one JSON line listing the kernels (the launches of phases 5 and 8-14,
    both ranks' of phase 12 included), and last the result line; before it
    the run fails if the build log shows a K1-K8, S3-S5, R1 or view kernel
    instantiation that spills.
@@ -174,6 +188,7 @@ import functools
 import io
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -2213,6 +2228,10 @@ def evaluation(dev, smi):
 SMALL_BATCHES = (1, 2, 3)
 SMALL_SUITES = ("append-still", "append-dynamic", "prune-spawn")
 RECORD_SUITES = ("append-still", "prune-spawn")
+# The recording held to the plain step: its first 250 steps, cut from the
+# video's 1000 (the plain step takes 10-15 s for 1000 at B = 1; draws are
+# per step, so a shorter episode is the longer one's prefix).
+RECORD_CHECK_STEPS = 250
 GAME_LEVELS = 8
 GAME_STEPS = 60
 CLI_ENVS = 64
@@ -2337,10 +2356,11 @@ def gif_info(path):
 
 def check_recording(dev, smi, logdir):
     """record_episode through the training stack at B = 1 on the kernels
-    against the plain step (the same generator, a SafeLifeCNN of seed 0,
-    the 33x33 view, time limit 1000), bit for bit; the seconds of the step
-    loop, of render_board over the frames and of the GIF encoder, and the
-    file sizes."""
+    (a SafeLifeCNN of seed 0, the 33x33 view, time limit 1000) with the
+    seconds of the step loop, of render_board over the frames and of the
+    GIF encoder, and the file sizes; and its first RECORD_CHECK_STEPS steps
+    against the plain step's episode of that length (the same generator),
+    bit for bit: frames and each step's reward."""
     from safelife_torch.metrics import recording
     from safelife_torch.render import graphics
     cfg = driver.TrainerConfig(view_shape=TRAIN_VIEW)
@@ -2353,21 +2373,21 @@ def check_recording(dev, smi, logdir):
             generator=torch.Generator().manual_seed(0)).to(dev)
         policy = driver._sampling_policy(net)
         trajs = []
-        for env in (driver.make_training_env(cfg, dev),
-                    plain_stack(cfg, dev)):
+        for env, steps in ((driver.make_training_env(cfg, dev),
+                            cfg.time_limit),
+                           (plain_stack(cfg, dev), RECORD_CHECK_STEPS)):
             gen = torch.Generator(dev).manual_seed(5)
             torch.cuda.synchronize()
             t = time.perf_counter()
             traj, launched = counted(lambda: recording.record_episode(
-                env, bank, policy, gen, level_idx=3,
-                max_steps=cfg.time_limit))
+                env, bank, policy, gen, level_idx=3, max_steps=steps))
             trajs.append((traj, launched, time.perf_counter() - t))
         (kern, launched, seconds), (plain, plain_launched, plain_s) = trajs
-        for name in ("board", "goals", "orientation"):
+        assert plain["length"] == RECORD_CHECK_STEPS
+        for name in ("board", "goals", "orientation", "rewards"):
             assert kern[name].dtype == plain[name].dtype, name
-            assert np.array_equal(kern[name], plain[name]), (suite, name)
-        assert (kern["reward"], kern["length"]) == (plain["reward"],
-                                                    plain["length"])
+            assert np.array_equal(kern[name][:RECORD_CHECK_STEPS],
+                                  plain[name]), (suite, name)
         steps = cfg.time_limit
         assert kern["length"] == steps  # the continuing stack never ends
         want = {"K1_action": steps, f"K2_advance_fold[{rule}]": steps,
@@ -2392,11 +2412,12 @@ def check_recording(dev, smi, logdir):
         assert set(delays) == {10}
         print(f"record_episode {suite} ({rule} rule) at B = 1 through the "
               f"training stack, view {TRAIN_VIEW}, SafeLifeCNN (seed 0), "
-              f"{steps} steps: kernels == plain step bit for bit (boards, "
-              f"goals, orientations, reward {kern['reward']:.4f}); step "
-              f"loop and its one transfer {seconds:.3f} s "
-              f"({seconds / steps * 1e3:.3f} ms a step; plain {plain_s:.3f} "
-              f"s); render_board over {steps} frames {render_s:.3f} s; GIF "
+              f"{steps} steps, reward {kern['reward']:.4f}: its first "
+              f"{RECORD_CHECK_STEPS} steps == the plain step's bit for bit "
+              f"(boards, goals, orientations, each step's reward; reward "
+              f"{plain['reward']:.4f} over them); step loop and its one transfer {seconds:.3f} s "
+              f"({seconds / steps * 1e3:.3f} ms a step; plain "
+              f"{plain_s:.3f} s for {RECORD_CHECK_STEPS}); render_board over {steps} frames {render_s:.3f} s; GIF "
               f"encoder {encode_s:.3f} s; npz {os.path.getsize(npz)} bytes, "
               f"GIF {os.path.getsize(gif)} bytes ({count} frames of "
               f"{width}x{height}, 10 cs each); launches {launched} on {smi}")
@@ -3579,8 +3600,10 @@ SINKHORN_MEAN_REL, SINKHORN_MAX_REL = 0.01, 0.05
 # directory with its .done marker.
 SCRIPT_RUN = "append-still-s0"
 SCALING_SIZES = (1, 2)
-# cpu_verify_finals' episodes on the card's host CPU, cut from the eval's
-# 1000 steps (25-34 s at full depth): the one depth this phase cuts.
+# The episodes of cpu_verify_finals (on the card's host CPU) and of
+# eval_backend_diff (whose slowest configuration also runs on that CPU),
+# cut from the eval's 1000 steps (25-34 s at full depth): the one depth
+# phases 13 and 14 cut.
 FINALS_TIME_LIMIT = 200
 V01_TIME_LIMIT = 100
 V01_LEVELS = 30
@@ -3710,7 +3733,8 @@ def check_eval_scripts(dev, smi, runs, outdir):
     logdir = os.path.join(runs, SCRIPT_RUN)
     t = time.perf_counter()
     report = ebd.main(logdir, keys=1,
-                      out=os.path.join(outdir, "eval_backend_diff.json"))
+                      out=os.path.join(outdir, "eval_backend_diff.json"),
+                      time_limit=FINALS_TIME_LIMIT)
     seconds = time.perf_counter() - t
     rows = {r["config"]: r for r in report["rows"]}
     assert sorted(rows) == sorted(ebd.CONFIGS), rows
@@ -3723,8 +3747,8 @@ def check_eval_scripts(dev, smi, runs, outdir):
     assert all(rows["card plain path"][k] == rows["card default"][k]
                for k in same), (rows["card plain path"], rows["card default"])
     print(f"eval_backend_diff of {SCRIPT_RUN} (phase 8's 64-env run, view "
-          f"{TRAIN_VIEW}), 5 configurations x 1 key, each a subprocess, "
-          f"five at once: "
+          f"{TRAIN_VIEW}), 5 configurations x 1 key, time limit "
+          f"{FINALS_TIME_LIMIT}, each a subprocess, five at once: "
           f"{seconds:.1f} s; the card's plain path == its kernel path level "
           f"for level (same key) on {smi}")
     t = time.perf_counter()
@@ -3851,6 +3875,270 @@ def scripts_phase(dev, smi, runs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the launch tooling.
+# ---------------------------------------------------------------------------
+
+# The sweep phase 14 runs through launch local (one NCCL rank): 64
+# environments (the sweep's), two batches of PPOConfig's 20 steps each.
+LAUNCH_RUNS = ("append-still-s0", "append-still+penalty0.5+lstm-s1")
+LAUNCH_STEPS = ROLLOUT * CLI_ENVS + 1
+LAUNCH_TIMEOUT_S = 300
+LOG_TIME = "%Y-%m-%d %H:%M:%S,%f"
+
+
+def log_times(lines):
+    """(seconds, message) of each ``asctime`` line of a training log."""
+    import datetime
+    out = []
+    for line in lines:
+        try:
+            stamp = datetime.datetime.strptime(line[:23], LOG_TIME)
+        except ValueError:
+            continue
+        out.append((stamp.timestamp(), line[24:]))
+    return out
+
+
+def batch_rate(records):
+    """Env-steps/s of the second batch from a training log's clock: the
+    first batch's report to the final checkpoint; and NCCL's bring-up
+    seconds where the run joined a group (else None)."""
+    report = next((t, int(m[1])) for t, msg in records
+                  if (m := re.search(r"step (\d+)/\d+ ", msg)))
+    saved = next((t, int(m[1])) for t, msg in records
+                 if (m := re.search(r"saved checkpoint at step (\d+)", msg)))
+    up = next((float(m[1]) for _, msg in records
+               if (m := re.search(r"nccl on cuda:\d+ in ([\d.]+) s", msg))),
+              None)
+    return (saved[1] - report[1]) / (saved[0] - report[0]), up
+
+
+# A training log's milestones, in order.
+MILESTONES = (("group up", "process group up"), ("first report", "step "),
+              ("checkpoint", "saved checkpoint"), ("eval", "eval @"),
+              ("done", "training done"))
+
+
+def timeline(records, start):
+    """Seconds from ``start`` (the wall clock) to each milestone a log
+    shows."""
+    out = []
+    for label, text in MILESTONES:
+        t = next((t for t, msg in records if text in msg), None)
+        if t is not None:
+            out.append(f"{label} +{t - start:.1f} s")
+    return ", ".join(out)
+
+
+def run_checkpoint(logdir):
+    root = os.path.join(logdir, "checkpoints")
+    (name,) = os.listdir(root)
+    return torch.load(os.path.join(root, name), map_location="cpu",
+                      weights_only=True)
+
+
+def launch_dry_runs(runs):
+    """``launch pod`` (2 hosts x 1 card), ``remote_job start`` and ``sweep
+    --round r5``, each with ``--dry-run``: the commands they print, and
+    nothing run or written."""
+    import shlex
+    from safelife_torch.scripts import launch, remote_job, sweep
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert launch.main(["pod", "h1,h2", "us-z", "/data/run",
+                            "--gpus-per-host", "1", "--dry-run", "--",
+                            "--task", "append-still"]) == 0
+    lines = out.getvalue().splitlines()
+    assert len(lines) == 4, lines
+    for host, line in zip(("h1", "h2"), lines[:2]):
+        assert line.endswith(f" {launch.REPO} '{host}:~/safelife_torch_job'")
+    for rank, (host, line) in enumerate(zip(("h1", "h2"), lines[2:])):
+        assert shlex.split(line)[:4] == ["+", "gcloud", "compute", "ssh"]
+        assert (f"SAFELIFE_COORDINATOR=h1:29500 SAFELIFE_NUM_PROCS=2 "
+                f"SAFELIFE_PROC_ID={rank} nohup python -m safelife_torch "
+                f"train /data/run --task append-still > train-{host}-{rank}"
+                f".log") in line, line
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert remote_job.main(["start", "inst", "job", "--zone", "us-z",
+                                "--dry-run", "--", "--task",
+                                "append-still"]) == 0
+    lines = out.getvalue().splitlines()
+    assert [shlex.split(x)[1] for x in lines] == ["rsync", "gcloud",
+                                                   "gcloud"], lines
+    assert "python -m safelife_torch train ~/job/data/job --task " \
+           "append-still" in lines[1]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert sweep.main(["--runs-dir", runs, "--round", "r5",
+                           "--dry-run"]) == 0
+    lines = out.getvalue().splitlines()
+    assert len(lines) == len(sweep.ROUNDS["r5"]) + 2, lines
+    assert not os.path.exists(runs)
+    print(f"dry runs: launch pod 2 hosts x 1 card (2 syncs, "
+          f"2 starts, ranks 0 and 1 on h1:29500), remote_job start (rsync, "
+          f"tmux + tensorboard, attach), sweep --round r5 "
+          f"({len(sweep.ROUNDS['r5'])} runs and the tail); nothing run")
+
+
+def launch_phase(dev, smi):
+    """Phase 14: the dry runs, a two-run sweep through ``launch local``
+    (one NCCL rank a run) against a direct ``train`` in this process with
+    the first run's arguments, a second sweep call that skips both runs,
+    the tail (CPU finals at FINALS_TIME_LIMIT steps, ``summarize_runs``)
+    and ``run_tb``'s summary; returns the direct run's launches."""
+    import logging
+    from safelife_torch.__main__ import main as cli
+    from safelife_torch.scripts import (cpu_verify_finals, run_tb,
+                                        summarize_runs, sweep)
+    steps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, results = os.path.join(tmp, "runs"), os.path.join(
+            tmp, "RESULTS.md")
+        t = time.perf_counter()
+        launch_dry_runs(runs)
+        steps["dry runs"] = time.perf_counter() - t
+
+        # The sweep through launch local, each run timed.
+        argv = ["--runs-dir", runs, "--only", *LAUNCH_RUNS, "--steps",
+                str(LAUNCH_STEPS), "--nproc", "1", "--timeout",
+                str(LAUNCH_TIMEOUT_S), "--results", results,
+                "--finals-time-limit", str(FINALS_TIME_LIMIT)]
+        trained, starts = [], {}
+        saved = [(sweep, "train"), (cpu_verify_finals, "main"),
+                 (summarize_runs, "main")]
+        saved = [(m, n, getattr(m, n)) for m, n in saved]
+
+        def timed(module, fn):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                name = module.__name__.rsplit(".", 1)[1]
+                if fn is saved[0][2]:  # sweep.train(logdir, ...)
+                    name = f"launched {os.path.basename(args[0])}"
+                    trained.append(os.path.basename(args[0]))
+                    starts[trained[-1]] = time.time() - (
+                        time.perf_counter() - t)
+                steps[name] = steps.get(name, 0) + time.perf_counter() - t
+                return out
+            return run
+        try:
+            for m, n, fn in saved:
+                setattr(m, n, timed(m, fn))
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = sweep.main(argv)
+            assert rc == 0, out.getvalue()[-4000:]
+            assert trained == list(LAUNCH_RUNS), trained
+            t = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert sweep.main(argv) == 0
+            steps["second sweep call"] = time.perf_counter() - t
+        finally:
+            for m, n, fn in saved:
+                setattr(m, n, fn)
+        assert trained == list(LAUNCH_RUNS), trained
+        for name in LAUNCH_RUNS:
+            assert f"skip {os.path.join(runs, name)}" in out.getvalue()
+            assert os.path.exists(os.path.join(runs, name + ".done"))
+        logs = {}
+        for name in LAUNCH_RUNS:
+            with open(os.path.join(runs, name + ".log")) as fh:
+                logs[name] = fh.read().splitlines()
+            assert any(re.search(r"eval @ \d+: levels=100 ", x)
+                       for x in logs[name]), logs[name][-20:]
+            assert any("process group up: rank 0/1, nccl on cuda:" in x
+                       for x in logs[name]), logs[name][-20:]
+
+        # The direct run: python -m safelife_torch train with run 1's
+        # arguments, in this process, without the episode video (it comes
+        # after the final checkpoint from a generator of its own, and no
+        # check reads it).
+        first = sweep.parse_name(LAUNCH_RUNS[0])
+        direct = os.path.join(tmp, "direct", LAUNCH_RUNS[0])
+        records = []
+        handler = logging.Handler()
+        handler.emit = lambda r: records.append((r.created, r.getMessage()))
+        log = logging.getLogger("safelife_torch")
+        level = log.level
+        log.addHandler(handler)
+        log.setLevel(logging.INFO)
+        video = driver.Trainer.maybe_record_video
+        driver.Trainer.maybe_record_video = lambda self: None
+        try:
+            t = time.perf_counter()
+            starts["direct"] = time.time()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                _, launches = counted(lambda: cli([
+                    "train", direct, *sweep.train_args(first, 0,
+                                                       LAUNCH_STEPS)]))
+            steps["direct train in process"] = time.perf_counter() - t
+        finally:
+            driver.Trainer.maybe_record_video = video
+            log.removeHandler(handler)
+            log.setLevel(level)
+        got, want = (run_checkpoint(os.path.join(runs, LAUNCH_RUNS[0])),
+                     run_checkpoint(direct))
+        assert got["net"].keys() == want["net"].keys()
+        for k, v in want["net"].items():
+            assert_bit_equal([got["net"][k]], [v],
+                             f"launched against direct {k}")
+        assert torch.equal(got["spe"], want["spe"])
+        assert got["counters"] == want["counters"], (got["counters"],
+                                                     want["counters"])
+        for name in ("K1_action", "S4_view_unpack", "K5_advance_with_field"):
+            assert launches.get(name, 0) > 0, (name, launches)
+        assert any(k.startswith("K2_advance_fold") for k in launches)
+        assert any(k.startswith("K3_advance_noreset") for k in launches)
+        rates = {name: batch_rate(log_times(logs[name]))
+                 for name in LAUNCH_RUNS}
+        direct_rate, _ = batch_rate(records)
+        print(f"launch local --nproc 1 (NCCL, world size 1) of "
+              f"{LAUNCH_RUNS[0]} ({CLI_ENVS} envs, {got['update_step']} "
+              f"batches, {got['counters']['num_steps']} env steps): final "
+              f"parameters and spe bit-equal to train in this process with "
+              f"the same arguments; launches of the direct run {launches}")
+        for name, (rate, up) in rates.items():
+            print(f"launched {name}: second batch {rate:.0f} env-steps/s "
+                  f"(the log's clock), NCCL bring-up {up:.3f} s, "
+                  f"{steps['launched ' + name]:.1f} s in all ("
+                  f"{timeline(log_times(logs[name]), starts[name])}), on "
+                  f"{smi}")
+        print(f"direct {LAUNCH_RUNS[0]}: second batch {direct_rate:.0f} "
+              f"env-steps/s (the log's clock), "
+              f"{steps['direct train in process']:.1f} s in all, no video ("
+              f"{timeline(records, starts['direct'])}), on {smi}")
+
+        # The tail's products and run_tb's summary.
+        with open(os.path.join(runs, "cpu_finals.json")) as fh:
+            finals = json.load(fh)
+        assert sorted(finals) == sorted(LAUNCH_RUNS), finals
+        with open(results) as fh:
+            text = fh.read()
+        for name in LAUNCH_RUNS:
+            task = name.rsplit("-s", 1)[0]
+            assert f"## {task} (1 seeds)" in text, text[-2000:]
+        assert text.count("**CPU-verified final mean_perf:") == 2
+        t = time.perf_counter()
+        summary = run_tb.summarize([os.path.join(runs, n)
+                                    for n in LAUNCH_RUNS])
+        steps["run_tb summary"] = time.perf_counter() - t
+        jsonl = [n for n in LAUNCH_RUNS if os.path.exists(
+            os.path.join(runs, n, "scalars.jsonl"))]
+        assert sum(line.endswith(":") for line in summary) == len(jsonl)
+        print(f"tail: cpu_verify_finals (time limit {FINALS_TIME_LIMIT}) "
+              f"{finals}; RESULTS.md holds both rows; run_tb summarizes "
+              f"{len(jsonl)} scalars.jsonl streams "
+              f"({len(summary) - len(jsonl)} tags; the others' tensorboard "
+              f"event files are tensorboard's to read)")
+    for name, seconds in steps.items():
+        print(f"phase 14 {name}: {seconds:.1f} s")
+    return launches
+
+
 # The kernels held to 0 spills, by library: entry-function name fragments
 # and how many instantiations the build log must show.  K1: 5 block
 # widths; K2/K3: 7 rule pairs x 3 modes x staged or streamed; K4-K8: 5
@@ -3891,7 +4179,24 @@ def main():
     if sys.argv[1:2] == ["--rank"]:  # a rank of phase 12's two-rank run
         rank_main(sys.argv[2])
         return
+    pycache = tempfile.mkdtemp(prefix="chip-smoke-pyc-")
+    try:
+        run_all(pycache)
+    finally:
+        shutil.rmtree(pycache, ignore_errors=True)
+
+
+def run_all(pycache):
+    """Every phase; the result lines at the end."""
     dev = torch.device("cuda", torch.cuda.current_device())
+    # Where Python is told not to write bytecode (PYTHONDONTWRITEBYTECODE),
+    # each process this run starts (phases 11-14: pool workers, ranks,
+    # eval and training subprocesses) compiles the sources of torch and its
+    # imports anew, 10-20 s a process.  The run's processes share one
+    # bytecode cache instead: the first to import a module writes it.
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = pycache
+    sys.dont_write_bytecode = False
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -3997,8 +4302,8 @@ def main():
 
 
 def later_phases(dev, smi, runs, trained, launches, timings, paths, script):
-    """Phases 9-13, then the kernels line's entries: each kernel's
-    launches on the main path and phases 8-13 beside its times."""
+    """Phases 9-14, then the kernels line's entries: each kernel's
+    launches on the main path and phases 8-14 beside its times."""
     t = time.perf_counter()
     evaluated = evaluation(dev, smi)
     print(f"phase 9: {time.perf_counter() - t:.1f} s")
@@ -4022,6 +4327,10 @@ def later_phases(dev, smi, runs, trained, launches, timings, paths, script):
     scripted = scripts_phase(dev, smi, runs)
     print(f"phase 13: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    launched = launch_phase(dev, smi)
+    print(f"phase 14: {time.perf_counter() - t:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = timings[name]
@@ -4029,11 +4338,13 @@ def later_phases(dev, smi, runs, trained, launches, timings, paths, script):
             name=name, route="cuda", source=source, replaces=replaces,
             # The main path's launches, the training path's, the
             # evaluation path's, the game layer's, the level supply's, the
-            # data-parallel training's and the scripts'.
+            # data-parallel training's, the scripts' and the launch
+            # tooling's.
             launches=launches[name] + trained.get(name, 0)
             + evaluated.get(name, 0) + played.get(name, 0)
             + supplied.get(name, 0) + sharded.get(name, 0)
-            + scripted.get(name, 0), max_abs_err=err,
+            + scripted.get(name, 0) + launched.get(name, 0),
+            max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             # R1's plain version is one PyTorch call (a sum).
@@ -4044,11 +4355,11 @@ def later_phases(dev, smi, runs, trained, launches, timings, paths, script):
             name=name, route="cuda", source=source, replaces=replaces,
             # T1 also runs in the game layer's selftest and training, in
             # the level supply's and the data-parallel trainers, and in
-            # the scripts' phase.
+            # the scripts' and the launch tooling's phases.
             launches=paths[path][counter] + (
                 played.get(counter, 0) + supplied.get(counter, 0)
                 + sharded.get(counter, 0) + scripted.get(counter, 0)
-                if path == "bench" else 0),
+                + launched.get(counter, 0) if path == "bench" else 0),
             max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms))

@@ -130,38 +130,49 @@ def cmd_render(args):
 
 
 def cmd_train(args):
+    """Train in this process, or as one rank of a data-parallel job when a
+    launcher set the SAFELIFE_* variables (``safelife_torch.scripts.
+    launch``): the rank joins the group, takes its card (``--device cpu``:
+    gloo on the CPU) and trains its shard of ``--num-envs`` on the mesh;
+    rank 0 writes the run's files."""
     import logging
 
     from . import resolve_device
-    device = resolve_device(args.device)
+    from .parallel import distributed
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    mesh = None
+    if distributed.initialize(device=args.device):
+        mesh = distributed.make_global_mesh(args.device)
+    device = mesh.device if mesh else resolve_device(args.device)
+    from .training.ppo import PPOConfig
+    ppo_cfg = PPOConfig(data_shards=mesh.world_size if mesh else 1)
     if args.task:
         from .training.curricula import make_curriculum_trainer
         trainer, total = make_curriculum_trainer(
             args.task, impact_penalty=args.impact_penalty,
             logdir=args.logdir, num_envs=args.num_envs, seed=args.seed,
-            view_shape=(args.view, args.view),
+            ppo_cfg=ppo_cfg, view_shape=(args.view, args.view),
             recurrent=(args.algo == "lstm"),
-            eval_every=int(args.eval_every), device=device)
+            eval_every=int(args.eval_every), device=device, mesh=mesh)
         trainer.restore_checkpoint()
         trainer.train(min(total, int(args.steps)) if args.steps else None)
-        return
-    from .training.driver import Trainer, TrainerConfig
-    from .training.ppo import PPOConfig
-    cfg = TrainerConfig(
-        num_envs=args.num_envs, total_steps=int(args.steps),
-        view_shape=(args.view, args.view),
-        impact_penalty=args.impact_penalty,
-        min_performance=args.min_performance,
-        seed=args.seed, logdir=args.logdir,
-        recurrent=(args.algo == "lstm"),
-        eval_every=int(args.eval_every))
-    trainer = Trainer(cfg, PPOConfig(), level_paths=tuple(args.levels),
-                      device=device)
-    trainer.restore_checkpoint()
-    trainer.train()
+    else:
+        from .training.driver import Trainer, TrainerConfig
+        cfg = TrainerConfig(
+            num_envs=args.num_envs, total_steps=int(args.steps),
+            view_shape=(args.view, args.view),
+            impact_penalty=args.impact_penalty,
+            min_performance=args.min_performance,
+            seed=args.seed, logdir=args.logdir,
+            recurrent=(args.algo == "lstm"),
+            eval_every=int(args.eval_every))
+        trainer = Trainer(cfg, ppo_cfg, level_paths=tuple(args.levels),
+                          device=device, mesh=mesh)
+        trainer.restore_checkpoint()
+        trainer.train()
+    distributed.shutdown()
 
 
 def cmd_bench(args):

@@ -26,7 +26,8 @@ def record_episode(env, bank, policy, generator=None, level_idx=0,
     ``max_steps`` steps, and capture the trajectory.  ``generator`` (a
     ``torch.Generator`` on the device) draws the policy's actions and the
     environment's spawns.  Returns a dict with stacked boards, goals and
-    orientations, plus reward, length and level_idx.
+    orientations, plus reward, length and level_idx, and each step's
+    reward (``rewards``, float32).
 
     Each step writes its frame into one record preallocated on the device
     and nothing is read back inside the loop: the record comes to the host
@@ -71,6 +72,7 @@ def record_episode(env, bank, policy, generator=None, level_idx=0,
         "goals": rec[:, hw:2 * hw].astype(np.uint16).reshape(steps, h, w),
         "orientation": rec[:, 2 * hw],
         "reward": float(rewards.sum()),
+        "rewards": rewards,
         "length": steps,
         "level_idx": level_idx,
     }

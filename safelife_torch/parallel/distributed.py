@@ -50,7 +50,8 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     the CPU; a caller may name gloo for CUDA tensors (ranks that share a
     card).  Nothing switches backend on its own: NCCL failing to come up
     raises.  Every collective of the group fails after ``timeout`` seconds
-    instead of waiting forever.  Returns True once the group is up.
+    instead of waiting forever.  Returns True once the group is up (a
+    first barrier has passed); the log line says how long that took.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "SAFELIFE_COORDINATOR")
@@ -67,12 +68,16 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    t = time.perf_counter()
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(seconds=timeout))
-    logger.info("process group up: rank %d/%d, %s on %s", process_id,
-                num_processes, backend, device)
+    # The first collective brings the communicators up: every rank joined.
+    dist.barrier(device_ids=[device.index] if backend == "nccl" else None)
+    logger.info("process group up: rank %d/%d, %s on %s in %.3f s",
+                process_id, num_processes, backend, device,
+                time.perf_counter() - t)
     return True
 
 

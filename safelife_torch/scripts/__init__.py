@@ -30,6 +30,15 @@ The ports of the JAX round's other scripts, each writing where its
     python -m safelife_torch.scripts.make_puzzles       # the level data
     python -m safelife_torch.scripts.make_levels
     python -m safelife_torch.scripts.make_v01_levels
+
+The launch tooling (the ports of ``scripts/launch-pod``, ``remote-job``,
+``run-tb``, ``sweep_r*.sh`` and ``summarize_runs.py``):
+
+    python -m safelife_torch.scripts.launch          # train as ranks: local, or GPU VMs
+    python -m safelife_torch.scripts.remote_job      # one VM: rsync, tmux, tensorboard
+    python -m safelife_torch.scripts.sweep           # the JAX round's sweeps
+    python -m safelife_torch.scripts.summarize_runs  # RESULTS.md from the logs
+    python -m safelife_torch.scripts.run_tb          # tensorboard over run dirs
 """
 
 import collections

@@ -101,9 +101,11 @@ def make_curriculum_trainer(
         task, impact_penalty=0.0, logdir=None, num_envs=16,
         bank_levels=100, seed=0, ppo_cfg: PPOConfig = PPOConfig(),
         fresh_levels_every=250_000, eval_suite="auto", device=None,
-        **cfg_overrides) -> Tuple[Trainer, float]:
+        mesh=None, **cfg_overrides) -> Tuple[Trainer, float]:
     """Build a Trainer configured for one benchmark task on ``device``
-    (``cuda`` unless the caller passes another).
+    (``cuda`` unless the caller passes another; the mesh's device on a
+    ``mesh``, where rank 0 makes the banks and ``ppo_cfg.data_shards``
+    must be the world size).
 
     Returns (trainer, total_steps).  The level banks are procedurally
     generated (``bank_levels`` levels each) and — unless
@@ -114,7 +116,8 @@ def make_curriculum_trainer(
     curriculum thresholds.  ``eval_suite="auto"`` evaluates on the task's
     frozen benchmark suite at every checkpoint.
     """
-    device = resolve_device(device)
+    device = resolve_device(
+        device if device is not None or mesh is None else mesh.device)
     spec = TASKS[task]
     t0, t1 = spec.impact_penalty_ramp
     penalty_sched = linear_schedule([t0, t1], [0.0, impact_penalty])
@@ -159,9 +162,11 @@ def make_curriculum_trainer(
             return _bank_factory(src, bank_levels, seed_box[0], device)()
         return make
 
-    bank = _bank_factory(first, bank_levels, seed, device)()
+    bank = (_bank_factory(first, bank_levels, seed, device)()
+            if mesh is None or mesh.rank == 0 else None)
     schedule = [(step, factory_for(src))
                 for step, src in spec.level_sources[1:]]
     trainer = Trainer(cfg, ppo_cfg, bank=bank, bank_schedule=schedule,
-                      bank_factory=factory_for(first), device=device)
+                      bank_factory=factory_for(first), device=device,
+                      mesh=mesh)
     return trainer, spec.total_steps

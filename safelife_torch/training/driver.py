@@ -37,6 +37,7 @@ videos, each followed by a barrier.
 
 import dataclasses
 import glob
+import io
 import json
 import logging
 import os
@@ -305,12 +306,22 @@ class Trainer:
         logger.info("saved checkpoint at step %d", step)
 
     def restore_checkpoint(self, step=None):
+        """Restore the newest checkpoint (or ``step``'s) of the logdir;
+        returns whether there was one.  On a mesh rank 0 reads it and every
+        rank loads its bytes: the ranks on other hosts need not hold the
+        logdir (only rank 0 writes it)."""
+        data = None
         root = self._checkpoint_dir()
-        found = dict(_checkpoints(root)) if root else {}
-        if not found:
+        found = dict(_checkpoints(root)) if root and self.rank == 0 else {}
+        if found:
+            step = step if step is not None else max(found)
+            with open(found[step], "rb") as fh:
+                data = fh.read()
+        if self.mesh is not None:
+            data = self.mesh.broadcast_object(data)
+        if data is None:
             return False
-        step = step if step is not None else max(found)
-        payload = torch.load(found[step], map_location=self.device,
+        payload = torch.load(io.BytesIO(data), map_location=self.device,
                              weights_only=True)
         ts = self.train_state
         self.net.load_state_dict(payload["net"])
@@ -336,7 +347,7 @@ class Trainer:
                 counters["episodes_completed"] if own else 0, **i32))
         self.env_state = W.replace_core(self.env_state, core)
         self._replicate_params()
-        logger.info("restored checkpoint from step %d", step)
+        logger.info("restored checkpoint from step %d", self._steps_offset)
         return True
 
     # -- training ----------------------------------------------------------

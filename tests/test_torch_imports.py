@@ -39,7 +39,8 @@ print(" ".join(names))
 """
 
 # Modules the import check must reach (the level supply, the parallel
-# modules and the ports of the JAX round's scripts among them).
+# modules, the ports of the JAX round's scripts and the launch tooling
+# among them).
 REQUIRED = ("safelife_torch.procgen", "safelife_torch.procgen.batched",
             "safelife_torch.procgen.generate", "safelife_torch.procgen.native",
             "safelife_torch.procgen.presets",
@@ -57,7 +58,12 @@ REQUIRED = ("safelife_torch.procgen", "safelife_torch.procgen.batched",
             "safelife_torch.scripts.level_archives",
             "safelife_torch.scripts.make_levels",
             "safelife_torch.scripts.make_puzzles",
-            "safelife_torch.scripts.make_v01_levels")
+            "safelife_torch.scripts.make_v01_levels",
+            "safelife_torch.scripts.launch",
+            "safelife_torch.scripts.remote_job",
+            "safelife_torch.scripts.run_tb",
+            "safelife_torch.scripts.summarize_runs",
+            "safelife_torch.scripts.sweep")
 
 
 def test_port_and_chip_smoke_import_without_jax():
