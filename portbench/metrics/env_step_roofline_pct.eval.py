@@ -1,0 +1,8 @@
+"""The env step's least time over the device time of the kernels launched
+inside BatchedSafeLifeEnv.step, in evaluation."""
+
+from portbench.harness import readers
+
+
+def read(raw):
+    return readers.env_step_roofline(raw, "eval")
