@@ -146,7 +146,8 @@ Phases, each an assertion that ends the run on failure:
    8x the gradient's bytes; ``advance_board_sharded`` at world size 1
    and on the two ranks, (64, 32, 8) soups with spawners and (512, 512,
    64) boards, 4 steps, bit-equal to K5 on the whole board; and
-   ``PhaseTimer`` and ``trace`` around one batch;
+   ``PhaseTimer`` and ``trace`` around one batch, the program's spans
+   within 100 us of the profile's events of their names;
 13. the JAX round's scripts (``python -m safelife_torch.scripts.*``):
    ``microbench`` in both modes at its own sizes (B = 4096, 64 chained
    steps in a CUDA graph), every row's loop then against the same loop on
@@ -3502,8 +3503,9 @@ def two_ranks(dev, smi):
 
 
 def profiled_batch(dev, smi):
-    """Step 5: PhaseTimer and trace around one batch at SHARD_ENVS; then
-    one more update timed without the profiler, its utilization of the
+    """Step 5: PhaseTimer and trace around one batch at SHARD_ENVS, the
+    program's spans of that batch on the profile's clock (``span_clock``);
+    then one more update timed without the profiler, its utilization of the
     card's dense bf16 peak, and ``dp_efficiency_model`` at that
     utilization."""
     from safelife_torch.parallel import distributed
@@ -3513,6 +3515,7 @@ def profiled_batch(dev, smi):
     from safelife_torch.parallel import mesh as pmesh
     stats, param_bytes = update_stats(trainer, pmesh.make_mesh(device=dev))
     timer = profiling.PhaseTimer()
+    profiling.clear()
     with tempfile.TemporaryDirectory() as logdir:
         with profiling.trace(logdir) as prof:
             with timer.phase("rollout", block=True) as out:
@@ -3533,6 +3536,7 @@ def profiled_batch(dev, smi):
         size = os.path.getsize(os.path.join(logdir, files[0]))
     summary = timer.summary()
     assert list(summary) == ["gae", "rollout", "update"], summary
+    span_clock(prof)
     wall_ms = sum(v["total_s"] for v in summary.values()) * 1e3
     busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
@@ -3556,6 +3560,37 @@ def profiled_batch(dev, smi):
           f"that utilization, {param_bytes} gradient bytes an Adam step and "
           f"the H100 SXM's 450 GB/s of NVLink: {model} (a model, not a "
           f"measurement)")
+
+
+def span_clock(prof):
+    """The program's spans of a profiled batch against the profile's own
+    events of their names: each within 100 us of its event at both ends
+    (one clock), and none on the device's rows."""
+    from safelife_torch.utils import profiling
+    mine = collections.defaultdict(list)
+    for s in profiling.spans():
+        mine[s.name].append(s)
+    host = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in mine:
+            assert e.device_type() == torch.autograd.DeviceType.CPU, (
+                f"span {e.name()} on the device's rows")
+            host[e.name()].append(e)
+    offsets = collections.defaultdict(list)
+    for name, records in mine.items():
+        events = sorted(host[name], key=lambda e: e.start_ns())
+        assert len(events) == len(records), (name, len(events), len(records))
+        for s, e in zip(records, events):
+            offsets[name] += [(s.start_ns - e.start_ns()) * 1e-3,
+                              (s.end_ns - e.end_ns()) * 1e-3]
+    worst = {name: max(v, key=abs) for name, v in offsets.items()}
+    assert "ppo.update" in worst and all(
+        abs(v) < 100 for v in worst.values()), worst
+    count = sum(map(len, mine.values()))
+    print(f"program spans against the profile's events, {count} spans: "
+          f"largest offset (us) by name {worst}; ppo.update start "
+          f"{offsets['ppo.update'][0]:+.2f} us, end "
+          f"{offsets['ppo.update'][1]:+.2f} us")
 
 
 def data_parallel(dev, smi):

@@ -1,0 +1,9 @@
+"""Device idle ms a training batch while the program is in its rollout
+(the ppo.rollout span and those inside it), from the profiled stretch."""
+
+from portbench.harness import program_spans
+
+
+def read(raw):
+    idle = program_spans.idle_ms(raw, "train")
+    return None if idle is None else idle["ppo.rollout"]

@@ -21,6 +21,7 @@ from . import resolve_device
 from .env.env import BatchedSafeLifeEnv, EnvConfig
 from .levels import loader
 from .utils.integrity import check_bank_reset_integrity
+from .utils.profiling import span, spanned
 
 BENCHMARK_ROOT = "benchmarks/v1.0"
 RECORDS = ("length", "reward", "completed", "possible")
@@ -75,21 +76,25 @@ def play_suite(env, bank, policy, batch, generator=None, chunk=64):
     time_limit = env.config.time_limit
     for _ in range(0, time_limit + chunk, chunk):
         for _ in range(chunk):
-            if recurrent:
-                action, carry = policy(obs, carry, generator=generator)
-            else:
-                action = policy(obs, generator=generator)
+            with span("rollout.policy"):
+                if recurrent:
+                    action, carry = policy(obs, carry, generator=generator)
+                else:
+                    action = policy(obs, generator=generator)
             state, ts = _step(env, state, bank, action, generator)
             newly = ts.done & ~rec["done"]
             for key, name in fields.items():
                 rec[key] = torch.where(newly, getattr(ts, name), rec[key])
             rec["done"] = rec["done"] | ts.done
             obs = ts.obs
-        if bool(rec["done"].all()):
+        with span("eval.done"):
+            finished = bool(rec["done"].all())
+        if finished:
             break
     return rec, state
 
 
+@spanned("eval.suite")
 def run_benchmark(benchmark_name, policy, logfile=None, generator=None,
                   view_shape=(25, 25), time_limit=1000, chunk=64,
                   side_effect_samples=0, pad_to_lanes=False, device=None,
@@ -135,7 +140,8 @@ def run_benchmark(benchmark_name, policy, logfile=None, generator=None,
         names = [f"level-{i}" for i in range(bank.num_levels)]
     # Levels must survive the device reset gather bit for bit before any
     # reported number is trusted (utils/integrity.py).
-    check_bank_reset_integrity(bank)
+    with span("integrity.bank"):
+        check_bank_reset_integrity(bank)
 
     env = BatchedSafeLifeEnv(EnvConfig(
         view_shape=view_shape, time_limit=time_limit, auto_reset=False,
@@ -145,30 +151,36 @@ def run_benchmark(benchmark_name, policy, logfile=None, generator=None,
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
 
-    t0 = time.perf_counter()
-    rec, state = play_suite(env, bank, policy, b, generator, chunk)
-    rec = {k: rec[k][:n].cpu().numpy() for k in RECORDS}
-    results = {
-        "name": names,
-        **rec,
-        "performance": rec["completed"] / np.maximum(rec["possible"], 1),
-        "wall_time": time.perf_counter() - t0,
-    }
+    with span("eval.steploop"):
+        t0 = time.perf_counter()
+        rec, state = play_suite(env, bank, policy, b, generator, chunk)
+        rec = {k: rec[k][:n].cpu().numpy() for k in RECORDS}
+        results = {
+            "name": names,
+            **rec,
+            "performance": rec["completed"] / np.maximum(rec["possible"], 1),
+            "wall_time": time.perf_counter() - t0,
+        }
 
     if side_effect_samples > 0:
         from . import side_effects as se
         from .render.text import cell_name
-        t0 = time.perf_counter()
-        action, inaction = se.accumulate_distributions(
-            state.init_board, state.board, state.spawn_prob,
-            state.episode_length, side_effect_samples, generator,
-            catch_up_steps=time_limit, use_kernels=use_kernels)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)  # the co-evolution's time
-        t1 = time.perf_counter()
-        scores, mass = se.score_distributions(action, inaction)
-        sc, ms = scores[:, :n].cpu().numpy(), mass[:, :n].cpu().numpy()
-        results["side_effect_time"] = (t1 - t0, time.perf_counter() - t1)
+        with span("eval.scoring"):
+            t0 = time.perf_counter()
+            with span("scoring.coevolve"):
+                action, inaction = se.accumulate_distributions(
+                    state.init_board, state.board, state.spawn_prob,
+                    state.episode_length, side_effect_samples, generator,
+                    catch_up_steps=time_limit, use_kernels=use_kernels)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)  # the co-evolution's time
+                t1 = time.perf_counter()
+            with span("scoring.sinkhorn"):
+                scores, mass = se.score_distributions(action, inaction)
+                sc, ms = (scores[:, :n].cpu().numpy(),
+                          mass[:, :n].cpu().numpy())
+                results["side_effect_time"] = (t1 - t0,
+                                               time.perf_counter() - t1)
         results["side_effects"] = sc.sum(axis=0)
         results["side_effect_mass"] = ms.sum(axis=0)
         # Per-cell-type structure, the form the reference reports and the

@@ -21,6 +21,7 @@ from .. import cells as C
 from .. import bits16, resolve_device
 from ..ops import agent as agent_ops
 from ..ops import env_step_kernels, life, obs as obs_ops, rng, scoring
+from ..utils.profiling import spanned
 from .state import EnvState, LevelBank
 
 ACTION_NAMES = (
@@ -283,6 +284,7 @@ class BatchedSafeLifeEnv:
             return rng.spawn_field_pair(seed, state.spawn_prob, shape, env0)
         return none, none
 
+    @spanned("env.step")
     def step(self, state: EnvState, bank: LevelBank, action,
              generator: Optional[torch.Generator] = None,
              spawn_board=None, spawn_goals=None, fresh_levels=None):

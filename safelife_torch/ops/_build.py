@@ -21,6 +21,8 @@ import threading
 
 import torch
 
+from ..utils.profiling import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -138,14 +140,15 @@ def library(name):
     """The loaded library ``name``, built first if needed."""
     with _lock:
         if name not in _libs:
-            path = _library_path(name)
-            if not os.path.exists(path):
-                build_all()
-            lib = ctypes.CDLL(path)
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+            with span("setup.kernels"):
+                path = _library_path(name)
+                if not os.path.exists(path):
+                    build_all()
+                lib = ctypes.CDLL(path)
+                for fn, argtypes in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _libs[name] = lib
         return _libs[name]
 
 

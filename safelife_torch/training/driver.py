@@ -56,6 +56,7 @@ from ..metrics.logging import (
     EpisodeLogger, log_training_metrics, make_summary_writer)
 from ..utils.integrity import (check_bank_reset_integrity,
                                check_device_integrity)
+from ..utils.profiling import setup_seconds, span, spanned
 from .model import SafeLifeCNN, SafeLifeLSTMNet
 from .ppo import (PPO, PPOConfig, RecurrentPPO, init_train_state,
                   sample_actions)
@@ -128,6 +129,7 @@ class Trainer:
     """Owns the training loop for one PPO run on ``device`` (``cuda``
     unless the caller passes another; the mesh's device on a ``mesh``)."""
 
+    @spanned("setup.trainer")
     def __init__(self, trainer_cfg: TrainerConfig,
                  ppo_cfg: PPOConfig = PPOConfig(),
                  bank=None,
@@ -366,8 +368,12 @@ class Trainer:
         # Golden self-check of the device compute path before any training
         # signal is trusted, and at the end; the training bank itself is
         # probed through the real reset gather too (utils/integrity.py).
-        check_device_integrity(self.device)
-        check_bank_reset_integrity(self.bank)
+        with span("setup.guard"):
+            check_device_integrity(self.device)
+            check_bank_reset_integrity(self.bank)
+        logger.info("set-up: %s", ", ".join(
+            f"{name} {seconds:.2f} s" for name, seconds in
+            setup_seconds(threading.get_ident()).items()))
 
         # Ops-level crash-resume marker (reference start-training:53-66:
         # active_job.txt lets a restarted box resume its run).
@@ -379,7 +385,8 @@ class Trainer:
 
         pending_eps = []  # device-side episode stats, flushed at report time
         while self.global_step() < total:
-            self._maybe_switch_bank()
+            with span("train.switch_bank"):
+                self._maybe_switch_bank()
             if self.carry is not None:
                 (self.env_state, self.obs, self.carry,
                  metrics) = self.ppo.train_batch(
@@ -395,41 +402,55 @@ class Trainer:
             # The ranks of a mesh learn of a fresh bank at reports only.
             ready = False if self.world_size > 1 else None
             if step >= next_report:
-                metrics, eps, ready = self._gather(metrics, pending_eps)
-                pending_eps = []
-                self.episode_logger.log_batch(
-                    eps, global_step=step, level_names=self.level_names)
-                log_training_metrics(self.writer, metrics, step)
-                now = time.time()
-                sps = (step - last_steps) / max(now - last_t, 1e-9)
-                last_steps, last_t = step, now
-                if self.writer:
-                    self.writer.add_scalar("perf/env_steps_per_sec", sps, step)
-                logger.info(
-                    "step %d/%d  reward=%.3f  entropy=%.3f  %.0f steps/s",
-                    step, total, float(metrics["mean_reward"]),
-                    float(metrics["entropy"]), sps)
+                with span("train.report"):
+                    with span("report.gather"):
+                        metrics, eps, ready = self._gather(metrics,
+                                                           pending_eps)
+                    pending_eps = []
+                    with span("report.log"):
+                        self.episode_logger.log_batch(
+                            eps, global_step=step,
+                            level_names=self.level_names)
+                        log_training_metrics(self.writer, metrics, step)
+                        now = time.time()
+                        sps = (step - last_steps) / max(now - last_t, 1e-9)
+                        last_steps, last_t = step, now
+                        if self.writer:
+                            self.writer.add_scalar("perf/env_steps_per_sec",
+                                                   sps, step)
+                        logger.info(
+                            "step %d/%d  reward=%.3f  entropy=%.3f  "
+                            "%.0f steps/s", step, total,
+                            float(metrics["mean_reward"]),
+                            float(metrics["entropy"]), sps)
                 if progress_fn:
                     progress_fn(step, metrics)
                 next_report = step + self.cfg.report_every
 
-            self._maybe_refresh_bank(step, ready)
+            with span("train.refresh"):
+                self._maybe_refresh_bank(step, ready)
 
             if step >= next_save:
-                self.save_checkpoint()
-                self.maybe_record_video()
+                with span("train.checkpoint"):
+                    self.save_checkpoint()
+                with span("train.video"):
+                    self.maybe_record_video()
                 saved = step
                 next_save = _next_on_grid(step, self.cfg.save_every)
             if step >= next_eval:
-                self.evaluate()
+                with span("train.evaluate"):
+                    self.evaluate()
                 evaluated = step
                 next_eval = _next_on_grid(step, eval_every)
 
         if self.global_step() != saved:
-            self.save_checkpoint()
-            self.maybe_record_video()
+            with span("train.checkpoint"):
+                self.save_checkpoint()
+            with span("train.video"):
+                self.maybe_record_video()
         if self.global_step() != evaluated:
-            self.evaluate()  # final frozen-suite numbers
+            with span("train.evaluate"):
+                self.evaluate()  # final frozen-suite numbers
         check_device_integrity(self.device)  # a corrupted run must not
         if marker and os.path.exists(marker):  # finish quietly
             os.remove(marker)  # clean exit: no restart needed

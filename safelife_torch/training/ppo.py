@@ -49,6 +49,7 @@ from typing import Tuple
 import torch
 
 from ..env.wrappers import unwrap, unwrap_env
+from ..utils.profiling import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +202,7 @@ def mask_carry(carry, done):
 
 
 @torch.no_grad()
+@spanned("ppo.rollout")
 def _rollout(cfg, net, env, bank, env_state, obs, carry, generator, actions,
              fresh):
     """The loop of :func:`rollout` and :func:`rollout_recurrent`; ``carry``
@@ -208,8 +210,9 @@ def _rollout(cfg, net, env, bank, env_state, obs, carry, generator, actions,
     episode stats)."""
     core = unwrap_env(env)
     if fresh is None and env.config.auto_reset:
-        fresh = core.sample_fresh_levels(
-            bank, unwrap(env_state).batch_size, generator)
+        with span("rollout.fresh_levels"):
+            fresh = core.sample_fresh_levels(
+                bank, unwrap(env_state).batch_size, generator)
 
     def forward(obs, carry):
         if carry is None:
@@ -218,12 +221,13 @@ def _rollout(cfg, net, env, bank, env_state, obs, carry, generator, actions,
 
     steps = []
     for t in range(cfg.steps_per_env):
-        carry, (logits, value) = forward(obs, carry)
-        action = (sample_actions(logits, generator, core.shard)
-                  if actions is None
-                  else actions[t].to(logits.device, torch.int64))
-        probs = torch.softmax(logits, dim=-1)
-        old_pi = probs.gather(1, action[:, None])[:, 0]
+        with span("rollout.policy"):
+            carry, (logits, value) = forward(obs, carry)
+            action = (sample_actions(logits, generator, core.shard)
+                      if actions is None
+                      else actions[t].to(logits.device, torch.int64))
+            probs = torch.softmax(logits, dim=-1)
+            old_pi = probs.gather(1, action[:, None])[:, 0]
         env_state, ts = env.step(env_state, bank, action, generator,
                                  fresh_levels=fresh)
         if carry is not None:
@@ -240,7 +244,8 @@ def _rollout(cfg, net, env, bank, env_state, obs, carry, generator, actions,
             # records (env_wrappers.py:195-231).
             side_effects=ts.side_effect_count))
         obs = ts.obs
-    _, (_, final_value) = forward(obs, carry)
+    with span("rollout.policy"):
+        _, (_, final_value) = forward(obs, carry)
     seq = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
     traj = Trajectory(
         obs=seq.pop("obs"), action=seq.pop("action"),
@@ -282,6 +287,7 @@ def rollout_recurrent(cfg: PPOConfig, net, env, bank, env_state, obs, carry,
 # Advantages (multi-gamma GAE) — reference ppo.py:466-508
 # ---------------------------------------------------------------------------
 
+@spanned("ppo.gae")
 def compute_gae(cfg: PPOConfig, reward, done, value):
     """reward/done: (T, B); value: (T+1, B, n_gamma).
     Returns (returns, advantages): (T, B, n_gamma)."""
@@ -451,6 +457,7 @@ class PPO:
         self.env = env
         self.mesh = mesh
 
+    @spanned("ppo.update")
     def _epochs(self, train_state, batch, loss_of, generator):
         """``epochs_per_batch`` epochs of ``num_minibatches`` clipped Adam
         steps on this process's ``batch`` environments; each minibatch is
@@ -479,13 +486,17 @@ class PPO:
             if world > 1:
                 perms = perms[mesh.rank:mesh.rank + 1]
             for k in range(cfg.num_minibatches):
-                loss, metrics = loss_of(minibatch_rows(perms, k, mb))
-                for p in params:
-                    p.grad = None
-                loss.backward()
-                if mesh is not None:
-                    mesh.average_gradients(params)
-                train_state.optimizer.step()
+                with span("update.minibatch"):
+                    with span("update.loss"):
+                        loss, metrics = loss_of(minibatch_rows(perms, k, mb))
+                    with span("update.backward"):
+                        for p in params:
+                            p.grad = None
+                        loss.backward()
+                        if mesh is not None:
+                            mesh.average_gradients(params)
+                    with span("update.optimizer"):
+                        train_state.optimizer.step()
         return metrics
 
     def update(self, train_state, traj, returns, advantages, generator=None):
@@ -510,6 +521,7 @@ class PPO:
         train_state.update_step += 1
         return metrics
 
+    @spanned("ppo.train_batch")
     def train_batch(self, train_state, env_state, obs, bank, generator=None):
         """Rollout, GAE and update; returns (env_state, obs, metrics),
         metrics holding device tensors and the rollout's episode stats
@@ -550,6 +562,7 @@ class RecurrentPPO(PPO):
                 *(x[:, idx] for x in rest), mesh=self.mesh),
             generator)
 
+    @spanned("ppo.train_batch")
     def train_batch(self, train_state, env_state, obs, carry, bank,
                     generator=None):
         """Rollout (threading ``carry``), GAE and update; returns
