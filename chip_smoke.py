@@ -203,7 +203,8 @@ import torch
 from safelife_torch import bench, bits16, scripts
 from safelife_torch import cells as C
 from safelife_torch.env import wrappers as W
-from safelife_torch.env.env import BatchedSafeLifeEnv, EnvConfig
+from safelife_torch.env.env import (GRAPH_CAPTURE, GRAPH_REPLAY,
+                                    BatchedSafeLifeEnv, EnvConfig)
 from safelife_torch.levels import loader, synth
 from safelife_torch.ops import _build, env_step_kernels as esk, life_kernels
 from safelife_torch.ops import obs as obs_ops
@@ -1810,12 +1811,14 @@ def hash_policy(obs, generator=None):
 
 
 def eval_launches(launched, bank, steps, catch_up, samples):
-    """Assert the launches of one suite eval on the kernels: K1 and K3 once
-    a step, UNPACK once a step and once for the first observation, K5 once
-    a catch-up step and twice a sample."""
+    """Assert the launches of one suite eval on the kernels: one replay a
+    step of the env step's CUDA graph and one capture; K1, K3 and UNPACK
+    counted by their wrappers at the capture's warm-up run and at the
+    capture, UNPACK once more for the first observation; K5 once a
+    catch-up step and twice a sample."""
     rule = rule_of(bank)
-    want = {"K1_action": steps, f"K3_advance_noreset[{rule}]": steps,
-            "S4_view_unpack": steps + 1,
+    want = {GRAPH_REPLAY: steps, GRAPH_CAPTURE: 1, "K1_action": 2,
+            f"K3_advance_noreset[{rule}]": 2, "S4_view_unpack": 3,
             "K5_advance_with_field": catch_up + 2 * samples if samples else 0}
     for name, n in want.items():
         assert launched.get(name, 0) == n, (name, n, launched)
@@ -1865,7 +1868,7 @@ def check_eval_paths(dev, smi):
             diff = np.abs(kern[name] - plain[name])
             worst = max(worst, float((diff / np.maximum(
                 np.abs(plain[name]), 1e-30)).max()))
-        steps = launched["K1_action"]
+        steps = launched[GRAPH_REPLAY]
         assert steps % 64 == 0 and steps >= EVAL_TIME_LIMIT, launched
         eval_launches(launched, bank, steps, EVAL_TIME_LIMIT, EVAL_SAMPLES)
         for name in ("K1_action", "K5_advance_with_field"):
@@ -1980,7 +1983,7 @@ def full_width_eval(dev, smi):
             side_effect_samples=FULL_SAMPLES, device=dev))
         seconds = time.perf_counter() - t
         bank = load_bank(suite, dev, num_levels=100)
-        eval_launches(launched, bank, launched["K1_action"], FULL_TIME_LIMIT,
+        eval_launches(launched, bank, launched[GRAPH_REPLAY], FULL_TIME_LIMIT,
                       FULL_SAMPLES)
         for name in ("performance", "reward", "side_effects",
                      "side_effect_mass"):
@@ -1992,7 +1995,7 @@ def full_width_eval(dev, smi):
               f"{TRAIN_VIEW}, time limit {FULL_TIME_LIMIT}, {FULL_SAMPLES} "
               f"side-effect samples, SafeLifeCNN policy (seed 0): "
               f"{seconds:.2f} s in all; step loop {res['wall_time']:.2f} s "
-              f"({launched['K1_action']} steps); side effects "
+              f"({launched[GRAPH_REPLAY]} steps); side effects "
               f"{coevolution + sinkhorn:.2f} s (co-evolution "
               f"{coevolution:.3f} s, Sinkhorn {sinkhorn:.3f} s); mean "
               f"performance {res['performance'].mean():.4f}, reward "
@@ -2166,7 +2169,7 @@ def recurrent_path(dev, smi, logdir):
         time_limit=EVAL_TIME_LIMIT, side_effect_samples=EVAL_SAMPLES,
         device=dev))
     eval_launches(launched, load_bank("append-still", dev, 100),
-                  launched["K1_action"], EVAL_TIME_LIMIT, EVAL_SAMPLES)
+                  launched[GRAPH_REPLAY], EVAL_TIME_LIMIT, EVAL_SAMPLES)
     assert np.isfinite(res["reward"]).all()
     assert np.isfinite(res["side_effects"]).all()
     launches.update(launched)

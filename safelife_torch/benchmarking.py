@@ -6,9 +6,11 @@ over ``benchmarks/v1.0/<name>`` with YAML logging and ``load_benchmarks``
 for analysis), in lockstep: all levels of the suite run at once as one
 device batch, and each level's stats are captured at its first episode
 end.  The step is ``EnvConfig(auto_reset=False)``: on a CUDA device
-kernels K1 and K3 under the suite's rule, then the view kernel's UNPACK.
-Side effects are scored by :mod:`.side_effects` (its co-evolution through
-kernel K5 on the card).
+kernels K1 and K3 under the suite's rule, then the view kernel's UNPACK,
+every step a replay of one CUDA graph of the step
+(``BatchedSafeLifeEnv.graphed``), the policy an eager call.  Side effects
+are scored by :mod:`.side_effects` (its co-evolution through kernel K5 on
+the card).
 """
 
 import os
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .env.env import BatchedSafeLifeEnv, EnvConfig
+from .env.env import BatchedSafeLifeEnv, EnvConfig, GraphedState
 from .levels import loader
 from .utils.integrity import check_bank_reset_integrity
 from .utils.profiling import span, spanned
@@ -58,11 +60,17 @@ def play_suite(env, bank, policy, batch, generator=None, chunk=64):
     episodes do not reset, so the carry is never masked).  Returns (the
     records of each environment's first episode, as device tensors under
     ``done`` and :data:`RECORDS`; the final state).
+
+    Where the env :meth:`~BatchedSafeLifeEnv.uses_graph` (the kernels on
+    a CUDA device), every step replays one CUDA graph of the env step and
+    ``obs`` is the graph's buffer, which the next step overwrites: a
+    policy must not keep ``obs`` past its call (a copy it may keep).
     """
     dev = env.device
     state = env.reset_to_levels(
         bank, torch.arange(batch, device=dev) % bank.num_levels)
     obs = env.observe(state)
+    state = env.graphed(state, bank)
     recurrent = bool(getattr(policy, "recurrent", False))
     carry = policy.init_carry(batch) if recurrent else None
     i32 = dict(dtype=torch.int32, device=dev)
@@ -91,6 +99,8 @@ def play_suite(env, bank, policy, batch, generator=None, chunk=64):
             finished = bool(rec["done"].all())
         if finished:
             break
+    if isinstance(state, GraphedState):
+        state = state.state
     return rec, state
 
 
@@ -110,7 +120,9 @@ def run_benchmark(benchmark_name, policy, logfile=None, generator=None,
     ``.recurrent`` and ``.init_carry``) is called as ``policy(obs, carry,
     generator=None) -> (actions, carry)``.  ``use_kernels=False`` runs
     the plain step and co-evolution instead of the kernels (the same
-    draws).
+    draws).  On the kernels the policy's ``obs`` is a buffer that the
+    next step overwrites (:func:`play_suite`): a policy must not keep it
+    past its call.
 
     Returns a dict of numpy arrays (one entry per level): length, reward,
     completed, possible, performance (+ side_effects, side_effect_mass

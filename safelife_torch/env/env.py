@@ -10,6 +10,12 @@ On a CUDA device with ``use_kernels`` the step runs through the kernels
 of :mod:`safelife_torch.ops.env_step_kernels`; otherwise it runs the plain
 tensor ops (``ops/agent.py``, ``ops/life.py``, ``ops/scoring.py``,
 ``ops/obs.py``), the reference semantics the kernels are held to.
+
+Without auto-reset the kernel step draws nothing but its spawn seed, and
+:meth:`BatchedSafeLifeEnv.graphed` makes a state whose steps replay one
+CUDA graph of that step (:class:`GraphedState`): the frozen-suite eval's
+loop, one replay a step where the eager step launches about a hundred
+kernels and copies.
 """
 
 import dataclasses
@@ -20,8 +26,8 @@ import torch
 from .. import cells as C
 from .. import bits16, resolve_device
 from ..ops import agent as agent_ops
-from ..ops import env_step_kernels, life, obs as obs_ops, rng, scoring
-from ..utils.profiling import spanned
+from ..ops import _build, env_step_kernels, life, obs as obs_ops, rng, scoring
+from ..utils.profiling import span, spanned
 from .state import EnvState, LevelBank
 
 ACTION_NAMES = (
@@ -30,6 +36,13 @@ ACTION_NAMES = (
     "TOGGLE UP", "TOGGLE RIGHT", "TOGGLE DOWN", "TOGGLE LEFT",
 )
 NUM_ACTIONS = len(ACTION_NAMES)
+
+# The names under which ``_build.LAUNCHES`` counts the captures and the
+# replays of the step's CUDA graph (a replay launches the captured kernels
+# without passing through their wrappers, which count the warm-up and the
+# capture).
+GRAPH_CAPTURE = "graph_capture[env_step]"
+GRAPH_REPLAY = "graph_replay[env_step]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +78,25 @@ class TimeStep:
     # auto-reset its board and goals are already post-reset (the reset
     # select is folded into the kernel); the per-env values are pre-reset.
     state_before_reset: Optional[EnvState] = None
+
+
+class GraphedState:
+    """The state of B environments stepped by replays of one CUDA graph of
+    :meth:`BatchedSafeLifeEnv.step` (made by
+    :meth:`BatchedSafeLifeEnv.graphed`): the ``EnvState`` leaves at fixed
+    addresses (``state``), the step's action and spawn seed, the bank, the
+    graph (captured at the first step) and the ``TimeStep`` that each
+    replay fills in place."""
+
+    def __init__(self, state: EnvState, bank: LevelBank):
+        self.state = EnvState(**{f.name: getattr(state, f.name).clone()
+                                 for f in dataclasses.fields(EnvState)})
+        self.bank = bank
+        self.action = torch.zeros(state.batch_size, dtype=torch.int32,
+                                  device=state.device)
+        self.seed = torch.zeros(1, dtype=torch.int32, device=state.device)
+        self.graph = None
+        self.timestep = None
 
 
 class BatchedSafeLifeEnv:
@@ -258,10 +290,14 @@ class BatchedSafeLifeEnv:
             remove_white_goals=cfg.remove_white_goals,
             env0=self.env0(state.batch_size))
 
-    def step_seed(self, generator=None):
+    def step_seed(self, generator=None, out=None):
         """The spawn seed of one kernel step: an int32 tensor of one
         element in ``[0, 2**31 - 1)`` on the device, drawn from
-        ``generator`` (the kernels read it there; the host never does)."""
+        ``generator`` (the kernels read it there; the host never does),
+        into ``out`` where given."""
+        if out is not None:
+            return torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                 out=out)
         return torch.randint(0, 2**31 - 1, (1,), generator=generator,
                              device=self.device, dtype=torch.int32)
 
@@ -284,6 +320,31 @@ class BatchedSafeLifeEnv:
             return rng.spawn_field_pair(seed, state.spawn_prob, shape, env0)
         return none, none
 
+    def uses_graph(self):
+        """True when :meth:`graphed` makes a state whose steps replay one
+        CUDA graph: the kernel path without auto-reset, where the step's
+        only random draw is its spawn seed."""
+        return self.uses_kernels() and not self.config.auto_reset
+
+    def graphed(self, state: EnvState, bank: LevelBank):
+        """``state`` as a :class:`GraphedState` on ``bank`` where
+        :meth:`uses_graph`, else ``state`` itself.
+
+        :meth:`step` on a graphed state copies the action into the
+        graph's action, draws the spawn seed from the caller's generator
+        into the graph's seed (the eager step's draw, in the same place),
+        replays the graph and returns the same graphed state and the same
+        ``TimeStep``: its tensors are overwritten by the next step, so a
+        caller reads them (the observation too) before it steps again.
+        The graph is captured at the first step, after one eager run of
+        the step on the graph's buffers (outputs dropped) that makes any
+        constant the step builds on first use.  ``.state`` is the
+        ``EnvState`` after the last step."""
+        if not self.uses_graph():
+            return state
+        self._check_device(state.board, bank.board)
+        return GraphedState(state, bank)
+
     @spanned("env.step")
     def step(self, state: EnvState, bank: LevelBank, action,
              generator: Optional[torch.Generator] = None,
@@ -295,8 +356,62 @@ class BatchedSafeLifeEnv:
         replace the spawn draws with given boolean fields (plain path).
         ``fresh_levels`` (from :meth:`sample_fresh_levels` or
         :meth:`fresh_levels`) supplies the levels of this step's
-        auto-resets; without it they are drawn from ``generator``.
+        auto-resets; without it they are drawn from ``generator``.  A
+        :class:`GraphedState` (from :meth:`graphed`) steps by a replay of
+        its graph.
         """
+        if isinstance(state, GraphedState):
+            if spawn_board is not None or spawn_goals is not None:
+                raise ValueError("a graphed state draws its own spawns")
+            return self._replay(state, bank, action, generator)
+        return self._advance(state, bank, action, None, generator,
+                             spawn_board, spawn_goals, fresh_levels)
+
+    def _replay(self, graphed: GraphedState, bank, action, generator):
+        if bank is not graphed.bank:
+            raise ValueError("a graphed state steps on the bank it was "
+                             "made with")
+        graphed.action.copy_(torch.as_tensor(action, device=self.device))
+        self.step_seed(generator, out=graphed.seed)
+        if graphed.graph is None:
+            self._capture(graphed)
+        graphed.graph.replay()
+        _build.LAUNCHES[GRAPH_REPLAY] += 1
+        return graphed, graphed.timestep
+
+    def _capture(self, graphed: GraphedState):
+        """Capture the step on ``graphed``'s buffers, then in-graph copies
+        of the leaves it changes back into ``graphed.state``."""
+        with span("env.capture"):
+            static = graphed.state
+            args = (static, graphed.bank, graphed.action, graphed.seed)
+            self._advance(*args)
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                # Thread-local: the trainer's bank refresh may use the
+                # device from its own thread meanwhile.
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    new, ts = self._advance(*args)
+                    for f in dataclasses.fields(EnvState):
+                        leaf = getattr(new, f.name)
+                        if leaf is not getattr(static, f.name):
+                            getattr(static, f.name).copy_(leaf)
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            graphed.graph = graph
+            graphed.timestep = dataclasses.replace(
+                ts, state_before_reset=static)
+            _build.LAUNCHES[GRAPH_CAPTURE] += 1
+
+    def _advance(self, state: EnvState, bank: LevelBank, action, seed,
+                 generator=None, spawn_board=None, spawn_goals=None,
+                 fresh_levels=None):
+        """The step's body; on the kernel path it draws the spawn seed
+        from ``generator`` unless given ``seed``."""
         cfg = self.config
         self._check_device(state.board, bank.board)
         action = torch.as_tensor(action, device=self.device).to(torch.int32)
@@ -310,8 +425,10 @@ class BatchedSafeLifeEnv:
             if cfg.auto_reset:
                 idx, fresh = self._fresh_for_step(state, bank, generator,
                                                   fresh_levels)
+            if seed is None:
+                seed = self.step_seed(generator)
             out = env_step_kernels.fused_step(**self.fused_inputs(
-                state, bank, action, fresh, self.step_seed(generator)))
+                state, bank, action, fresh, seed))
             (board, goals, agent_row, agent_col, orientation, exited,
              points, comp1, poss1, ce1, effect_count) = out[:11]
             if cfg.auto_reset and cfg.compute_obs:
