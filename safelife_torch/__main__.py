@@ -12,6 +12,10 @@ refuse to start unless given ``--device cpu``.
 import argparse
 import sys
 
+# ``train --algo``: the policy's class (``training.driver.NETS``).
+ALGOS = {"cnn": "SafeLifeCNN", "lstm": "SafeLifeLSTMNet",
+         "gtrxl": "SafeLifeGTrXLNet"}
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
@@ -61,9 +65,10 @@ def main(argv=None):
     p.add_argument("--min-performance", type=float, default=0.01)
     p.add_argument("--view", type=int, default=33)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--algo", choices=("cnn", "lstm"), default="cnn",
-                   help="policy: feedforward CNN (default) or the "
-                        "recurrent CNN+LSTM trained with RecurrentPPO")
+    p.add_argument("--algo", choices=tuple(ALGOS), default="cnn",
+                   help="policy: feedforward CNN (default), or the "
+                        "recurrent CNN+LSTM or CNN+GTrXL (12 layers, a "
+                        "512-step memory) trained with RecurrentPPO")
     p.add_argument("--eval-every", type=float, default=0,
                    help="frozen-suite eval cadence in env steps "
                         "(0 = at every checkpoint; the final eval "
@@ -154,7 +159,7 @@ def cmd_train(args):
             args.task, impact_penalty=args.impact_penalty,
             logdir=args.logdir, num_envs=args.num_envs, seed=args.seed,
             ppo_cfg=ppo_cfg, view_shape=(args.view, args.view),
-            recurrent=(args.algo == "lstm"),
+            recurrent=args.algo != "cnn", net=ALGOS[args.algo],
             eval_every=int(args.eval_every), device=device, mesh=mesh)
         trainer.restore_checkpoint()
         trainer.train(min(total, int(args.steps)) if args.steps else None)
@@ -166,7 +171,7 @@ def cmd_train(args):
             impact_penalty=args.impact_penalty,
             min_performance=args.min_performance,
             seed=args.seed, logdir=args.logdir,
-            recurrent=(args.algo == "lstm"),
+            recurrent=args.algo != "cnn", net=ALGOS[args.algo],
             eval_every=int(args.eval_every))
         trainer = Trainer(cfg, ppo_cfg, level_paths=tuple(args.levels),
                           device=device, mesh=mesh)

@@ -57,11 +57,16 @@ from ..metrics.logging import (
 from ..utils.integrity import (check_bank_reset_integrity,
                                check_device_integrity)
 from ..utils.profiling import setup_seconds, span, spanned
-from .model import SafeLifeCNN, SafeLifeLSTMNet
+from .model import SafeLifeCNN, SafeLifeGTrXLNet, SafeLifeLSTMNet
 from .ppo import (PPO, PPOConfig, RecurrentPPO, init_train_state,
                   sample_actions)
 
 logger = logging.getLogger(__name__)
+
+# The policies a run can name (``TrainerConfig.net``, ``config.json``):
+# classes of this module, looked up by name when a net is made.
+NETS = ("SafeLifeCNN", "SafeLifeLSTMNet", "SafeLifeGTrXLNet")
+RECURRENT = ("SafeLifeLSTMNet", "SafeLifeGTrXLNet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +100,19 @@ class TrainerConfig:
     # (safelife_ppo.py:168-189).  The carry is threaded through rollouts
     # and reset at episode ends and bank switches.
     recurrent: bool = False
+    # The policy's class name (``NETS``); None: SafeLifeLSTMNet where
+    # ``recurrent``, else SafeLifeCNN.  SafeLifeGTrXLNet is recurrent.
+    net: Optional[str] = None
+
+
+def net_name(cfg: TrainerConfig):
+    """The class name of ``cfg``'s policy, checked against ``recurrent``."""
+    name = cfg.net or ("SafeLifeLSTMNet" if cfg.recurrent else "SafeLifeCNN")
+    if name not in NETS:
+        raise ValueError(f"unknown net {name!r}; one of {sorted(NETS)}")
+    if (name in RECURRENT) != cfg.recurrent:
+        raise ValueError(f"{name} with recurrent={cfg.recurrent}")
+    return name
 
 
 def make_training_env(cfg: TrainerConfig, device=None, shard=(0, 1)):
@@ -175,16 +193,15 @@ class Trainer:
         self.env_state = self.env.reset_all(
             self.bank, self.local_envs, self.generator)
         self.obs = self.env.observe(self.env_state)
-        net_class = SafeLifeLSTMNet if trainer_cfg.recurrent else SafeLifeCNN
-        self.net = (net or net_class(
+        self.net = (net or globals()[net_name(trainer_cfg)](
             view_shape=trainer_cfg.view_shape, in_channels=self.obs.shape[-1],
             num_actions=9, n_gamma=ppo_cfg.n_gamma,
             generator=init)).to(self.device)
         self.train_state = init_train_state(ppo_cfg, self.net)
         self._replicate_params()
-        # The LSTM carry of the training envs (None for the CNN).
-        self.carry = (self.net.initial_carry(self.local_envs)
-                      if trainer_cfg.recurrent else None)
+        # The recurrent carry of the training envs (None for the CNN).
+        self.carry = (self._initial_carry() if trainer_cfg.recurrent
+                      else None)
         self.dead_start_evals = 0  # consecutive evals flagged dead
 
         # Rank 0 writes the run's files.
@@ -218,6 +235,12 @@ class Trainer:
             from ..parallel.mesh import replicate
             replicate(self.mesh, (self.net, self.train_state.spe))
 
+    def _initial_carry(self):
+        """The recurrent net's empty carry, with room for a rollout's
+        steps where the carry keeps them."""
+        return self.net.initial_carry(self.local_envs,
+                                      self.ppo_cfg.steps_per_env)
+
     def _barrier(self):
         if self.mesh is not None:
             self.mesh.barrier()
@@ -227,24 +250,30 @@ class Trainer:
         (T * batches, B) each, gathered along the environments, on the
         host; and on a mesh of several ranks whether rank 0's fresh bank
         is ready, riding the metrics' all-reduce (None in one process,
-        where the refresh reads its own thread)."""
+        where the refresh reads its own thread).  The metrics, as float32,
+        come back as one buffer: one copy however many there are."""
         episodes = {k: torch.cat([e[k] for e in episodes])
                     for k in episodes[0]}
-        ready = None
+        keys = sorted(metrics)
+        parts = [metrics[k].detach().to(torch.float32).reshape(-1)
+                 for k in keys]
         if self.world_size > 1:
-            keys = sorted(metrics)
-            flat = torch.cat([metrics[k].detach().to(torch.float32).reshape(
-                -1) for k in keys] + [torch.tensor(
-                    [float(self._refresh_ready())], device=self.device)])
+            parts.append(torch.tensor([float(self._refresh_ready())],
+                                      device=self.device))
+        flat = torch.cat(parts)
+        if self.world_size > 1:
             flat = self.mesh.all_reduce(flat)
-            ready = bool(flat[-1] > 0)
-            flat = flat[:-1] / self.world_size
-            sizes = [metrics[k].numel() for k in keys]
-            metrics = {k: v.view_as(metrics[k]) for k, v in zip(
-                keys, torch.split(flat, sizes))}
             episodes = {k: self.mesh.all_gather(v, dim=1)
                         for k, v in episodes.items()}
-        return _host(metrics), _host(episodes), ready
+        flat = flat.cpu().numpy()
+        ready = None
+        if self.world_size > 1:
+            ready = bool(flat[-1] > 0)
+            flat = flat[:-1] / np.float32(self.world_size)
+        ends = np.cumsum([metrics[k].numel() for k in keys])[:-1]
+        metrics = {k: v.reshape(metrics[k].shape)
+                   for k, v in zip(keys, np.split(flat, ends))}
+        return metrics, _host(episodes), ready
 
     def _write_run_config(self):
         """Persist what's needed to rebuild the policy from the logdir
@@ -258,6 +287,7 @@ class Trainer:
                 "num_actions": 9,
                 "time_limit": self.cfg.time_limit,
                 "recurrent": self.cfg.recurrent,
+                "net": net_name(self.cfg),
             }, fh)
 
     # -- checkpointing -----------------------------------------------------
@@ -476,8 +506,8 @@ class Trainer:
             self.env_state = self.env.reset_all(
                 self.bank, self.local_envs, self.generator)
             self.obs = self.env.observe(self.env_state)
-            if self.carry is not None:  # fresh episodes: fresh LSTM state
-                self.carry = self.net.initial_carry(self.local_envs)
+            if self.carry is not None:  # fresh episodes: a fresh carry
+                self.carry = self._initial_carry()
             # reset_all zeroes the global counters; fold them into offset
             self._steps_offset = offset
             self._replicate_params()
@@ -626,7 +656,7 @@ class Trainer:
 
 
 def _sampling_policy(net):
-    if isinstance(net, SafeLifeLSTMNet):
+    if hasattr(net, "initial_carry"):
         @torch.no_grad()
         def policy(obs, carry, generator=None):
             carry, (logits, _) = net(obs, carry)
@@ -665,12 +695,15 @@ def load_policy(logdir, device=None):
         raise FileNotFoundError(f"no checkpoints under {logdir}")
     payload = torch.load(found[-1][1], map_location=device, weights_only=True)
     view_shape = tuple(run_cfg["view_shape"])
-    net_class = (SafeLifeLSTMNet if run_cfg.get("recurrent", False)
-                 else SafeLifeCNN)
-    net = net_class(view_shape=view_shape,
-                    in_channels=run_cfg.get("in_channels", 15),
-                    num_actions=run_cfg.get("num_actions", 9),
-                    n_gamma=run_cfg.get("n_gamma", 1)).to(device)
+    name = run_cfg.get("net") or (
+        "SafeLifeLSTMNet" if run_cfg.get("recurrent", False)
+        else "SafeLifeCNN")
+    if name not in NETS:
+        raise ValueError(f"{logdir}: unknown net {name!r}")
+    net = globals()[name](view_shape=view_shape,
+                          in_channels=run_cfg.get("in_channels", 15),
+                          num_actions=run_cfg.get("num_actions", 9),
+                          n_gamma=run_cfg.get("n_gamma", 1)).to(device)
     net.load_state_dict(payload["net"])
     net.eval()
     return _sampling_policy(net), view_shape

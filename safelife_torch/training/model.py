@@ -20,6 +20,11 @@ weight is the transpose of flax's kernel (:func:`params_from_flax`).
 an LSTM of 512 units in float32 (outside the autocast region, as the JAX
 model casts to float32 before its ``OptimizedLSTMCell``) in place of the
 dense layer.  Its carry is ``(c, h)``, flax's order.
+
+:class:`SafeLifeGTrXLNet` is the third policy: the same trunk, a dense
+embedding to 256, then the 12-layer gated Transformer-XL core of
+:mod:`.gtrxl` over a 512-step memory, then the heads in float32.  It has
+no flax counterpart: its checkpoints are the port's own state dicts.
 """
 
 import math
@@ -28,6 +33,9 @@ from typing import Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..utils.profiling import span
+from . import gtrxl
 
 # (features, kernel, stride) of the three VALID-padded convolutions.
 TRUNK = ((32, 5, 2), (64, 3, 2), (64, 3, 1))
@@ -180,9 +188,11 @@ class SafeLifeLSTMNet(nn.Module):
         _ortho_(self.value, 1.0, generator)
         self.to(memory_format=torch.channels_last)
 
-    def initial_carry(self, batch):
+    def initial_carry(self, batch, segment=0):
         """The zero carry ``(c, h)`` of ``batch`` environments, float32 on
-        the net's device."""
+        the net's device.  ``segment``, the steps a rollout takes between
+        updates, is for a net whose carry keeps them (the GTrXL's
+        memory); this carry holds one step."""
         z = torch.zeros((batch, LSTM_UNITS),
                         device=self.lstm.weight_ih.device)
         return (z, z.clone())
@@ -208,6 +218,74 @@ class SafeLifeLSTMNet(nn.Module):
         return carry, self.heads(h)
 
 
+class SafeLifeGTrXLNet(nn.Module):
+    """CNN trunk + dense embedding + GTrXL core (:mod:`.gtrxl`) +
+    policy/value heads.
+
+    The recurrent interface of :class:`SafeLifeLSTMNet`: ``net(obs,
+    carry) -> (carry', (logits, values))`` for one step, ``features``,
+    ``heads``, ``initial_carry``; and two of its own, which the PPO code
+    uses where a net has them: ``reset_carry(carry, done)`` (the finished
+    environments' memories emptied) and ``sequence(features, done,
+    carry0)`` (a whole segment replayed at once).  ``initial_carry(batch,
+    segment)`` makes room in the memory for the ``segment`` steps a
+    rollout takes between updates (``steps_per_env``).  The trunk, the
+    embedding and the core's products compute in ``compute_dtype``; the
+    heads in float32.
+    """
+
+    def __init__(self, view_shape=(33, 33), in_channels=15, num_actions=9,
+                 n_gamma=1, compute_dtype=torch.bfloat16, generator=None,
+                 layers=gtrxl.LAYERS, d_model=gtrxl.D_MODEL,
+                 heads=gtrxl.HEADS, head_dim=gtrxl.HEAD_DIM, mlp=gtrxl.MLP,
+                 memory=gtrxl.MEMORY):
+        super().__init__()
+        self.view_shape = tuple(view_shape)
+        self.num_actions = num_actions
+        self.n_gamma = n_gamma
+        self.compute_dtype = compute_dtype
+        self.convs, features = _make_trunk(view_shape, in_channels,
+                                           generator)
+        self.embed = nn.Linear(features, d_model)
+        self.core = gtrxl.GTrXL(layers, d_model, heads, head_dim, mlp,
+                                memory, compute_dtype, generator)
+        self.policy = nn.Linear(d_model, num_actions)
+        self.value = nn.Linear(d_model, n_gamma)
+        gtrxl.normal_init(self.embed, 1.0, generator)
+        _ortho_(self.policy, 0.01, generator)
+        _ortho_(self.value, 1.0, generator)
+        self.to(memory_format=torch.channels_last)
+
+    def initial_carry(self, batch, segment=0):
+        return self.core.initial_carry(batch, segment)
+
+    def reset_carry(self, carry, done):
+        return self.core.reset_carry(carry, done)
+
+    def take_memory_fill(self):
+        return self.core.take_memory_fill()
+
+    def features(self, obs):
+        """(..., vh, vw, C) observations -> (N, d_model) float32: the
+        trunk, then the embedding."""
+        x = _trunk(self.convs, obs.reshape((-1,) + tuple(obs.shape[-3:])),
+                   self.compute_dtype)
+        return gtrxl.linear(x, self.embed, self.compute_dtype).float()
+
+    def heads(self, h):
+        return self.policy(h), self.value(h)
+
+    def forward(self, obs, carry):
+        carry, h = self.core.step(self.features(obs), carry)
+        return carry, self.heads(h)
+
+    def sequence(self, features, done, carry0):
+        """(T, M, d_model) features of a segment and its ``done`` (T, M),
+        replayed from ``carry0``: (T, M, d_model) core outputs."""
+        with span("gtrxl.replay"):
+            return self.core.segment(features, done, carry0)
+
+
 # Flax module names of the layers, in the order flax numbers them.
 FLAX_LAYERS = (("Conv_0", "convs.0"), ("Conv_1", "convs.1"),
                ("Conv_2", "convs.2"), ("Dense_0", "dense"),
@@ -220,6 +298,9 @@ GATES = "ifgo"   # nn.LSTMCell's order of the gates in its weights
 
 
 def _layers(net):
+    if isinstance(net, SafeLifeGTrXLNet):
+        raise ValueError("SafeLifeGTrXLNet has no flax counterpart: its "
+                         "checkpoints are the port's own .pt state dicts")
     return (LSTM_FLAX_LAYERS if isinstance(net, SafeLifeLSTMNet)
             else FLAX_LAYERS)
 

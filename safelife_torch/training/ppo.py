@@ -11,7 +11,10 @@ to the host inside :meth:`PPO.train_batch`.
 rollout threads the LSTM carry and zeroes it where an episode ends, and
 the loss replays each minibatch's sequences from the carry the rollout
 started with.  Minibatches are whole environments, so sequences stay
-intact (the reference's scheme, ppo.py:510-533).
+intact (the reference's scheme, ppo.py:510-533).  A net with its own
+``reset_carry`` and ``sequence`` (``SafeLifeGTrXLNet``, whose carry is a
+memory of 512 steps) resets its carry itself and replays a whole segment
+at once; the LSTM's path is unchanged.
 
 Reference-faithful loss details (all optional, defaults mirror the
 reference; see the JAX module for their sources):
@@ -195,8 +198,12 @@ def sample_actions(logits, generator=None, shard=(0, 1)):
     return torch.argmax(logits + gumbel, dim=-1)
 
 
-def mask_carry(carry, done):
-    """The recurrent carry with the rows of finished episodes zeroed."""
+def mask_carry(carry, done, net=None):
+    """The recurrent carry with the rows of finished episodes zeroed, or
+    reset by ``net.reset_carry`` where the net has one."""
+    reset = getattr(net, "reset_carry", None)
+    if reset is not None:
+        return reset(carry, done)
     keep = (~done).to(torch.float32)[:, None]
     return tuple(x * keep for x in carry)
 
@@ -231,7 +238,7 @@ def _rollout(cfg, net, env, bank, env_state, obs, carry, generator, actions,
         env_state, ts = env.step(env_state, bank, action, generator,
                                  fresh_levels=fresh)
         if carry is not None:
-            carry = mask_carry(carry, ts.done)
+            carry = mask_carry(carry, ts.done, net)
         steps.append(dict(
             obs=obs, action=action, old_pi=old_pi, reward=ts.reward,
             done=ts.done, value=value, times_up=ts.times_up,
@@ -397,9 +404,12 @@ def recurrent_forward(net, obs_seq, done_seq, carry0):
     ``net`` from ``carry0``, zeroing the carry at episode ends.  Returns
     (logits (T, M, A), values (T, M, n_gamma)).  The trunk does not read
     the carry, so it runs once over all T * M observations; only the cell
-    steps through time."""
+    steps through time, or ``net.sequence`` replays the whole segment
+    where the net has one."""
     steps, batch = done_seq.shape
     features = net.features(obs_seq).reshape(steps, batch, -1)
+    if hasattr(net, "sequence"):
+        return net.heads(net.sequence(features, done_seq, carry0))
     carry, hidden = carry0, []
     for x, done in zip(features, done_seq):
         carry, h = net.cell(x, carry)
@@ -494,7 +504,8 @@ class PPO:
                             p.grad = None
                         loss.backward()
                         if mesh is not None:
-                            mesh.average_gradients(params)
+                            with span("update.allreduce"):
+                                mesh.average_gradients(params)
                     with span("update.optimizer"):
                         train_state.optimizer.step()
         return metrics
@@ -538,7 +549,8 @@ class PPO:
 
 
 class RecurrentPPO(PPO):
-    """PPO over a recurrent policy (``SafeLifeLSTMNet``)::
+    """PPO over a recurrent policy (``SafeLifeLSTMNet``,
+    ``SafeLifeGTrXLNet``)::
 
         ppo = RecurrentPPO(cfg, env)
         carry = net.initial_carry(B)
@@ -575,5 +587,8 @@ class RecurrentPPO(PPO):
                                           traj.value)
         metrics = self.update(train_state, traj, returns, advantages, carry0,
                               generator)
+        take = getattr(train_state.net, "take_memory_fill", None)
+        if take is not None:  # the rollout's mean memory fill, a share
+            metrics["memory_fill"] = take()
         return env_state, obs, carry, self._finish(
             train_state, traj, returns, advantages, metrics, epstats)

@@ -16,7 +16,9 @@ tests of their own.
 """
 
 import functools
+import json
 import os
+import shutil
 
 import imageio.v2 as imageio
 import numpy as np
@@ -128,6 +130,57 @@ def test_train_bench_render_selftest(tmp_path, archive, monkeypatch, capsys):
 
     cli.main(["selftest", "--device", "cpu"])
     assert "integrity OK on the CPU" in capsys.readouterr().out
+
+
+def test_train_gtrxl_checkpoint_load_and_bench(tmp_path, archive,
+                                               monkeypatch):
+    """``train --algo gtrxl`` (the core cut to 2 layers of 32 over a
+    memory of 8 for the CPU) writes its net's name, a checkpoint that
+    ``load_policy`` rebuilds as a recurrent policy, and that policy plays
+    two levels through ``run_benchmark``."""
+    from safelife_torch.training.model import SafeLifeGTrXLNet
+    monkeypatch.setattr(driver, "TrainerConfig", functools.partial(
+        driver.TrainerConfig, time_limit=TIME_LIMIT))
+    monkeypatch.setattr(driver, "SafeLifeGTrXLNet", functools.partial(
+        SafeLifeGTrXLNet, layers=2, d_model=32, heads=2, head_dim=16,
+        mlp=64, memory=8))
+    monkeypatch.setattr(driver, "make_summary_writer", lambda logdir: None)
+    run = str(tmp_path / "run")
+    cli.main(["train", run, "--levels", archive, "--num-envs", "4",
+              "--steps", "160", "--view", "17", "--algo", "gtrxl",
+              "--device", "cpu"])
+    with open(os.path.join(run, "config.json")) as fh:
+        cfg = json.load(fh)
+    assert cfg["net"] == "SafeLifeGTrXLNet" and cfg["recurrent"]
+    policy, view = driver.load_policy(run, device="cpu")
+    assert policy.recurrent and isinstance(policy.net, SafeLifeGTrXLNet)
+    os.makedirs(tmp_path / "two")
+    for i in range(2):
+        shutil.copy(tmp_path / "levels" / f"level-{i}.npz",
+                    tmp_path / "two")
+    two = combine_levels(str(tmp_path / "two"))
+    results = benchmarking.run_benchmark(
+        two, policy, view_shape=view, time_limit=TIME_LIMIT,
+        side_effect_samples=4, device="cpu")
+    assert len(results["length"]) == 2
+
+
+@pytest.mark.parametrize("recurrent", [False, True])
+def test_config_json_without_a_net_name_still_loads(tmp_path, recurrent):
+    """A logdir written before ``config.json`` named its net: the CNN or
+    the LSTM by ``recurrent``."""
+    from safelife_torch.training import model
+    cls = model.SafeLifeLSTMNet if recurrent else model.SafeLifeCNN
+    net = cls(view_shape=(17, 17))
+    os.makedirs(tmp_path / "checkpoints")
+    torch.save({"net": net.state_dict()}, tmp_path / "checkpoints" / "8.pt")
+    with open(tmp_path / "config.json", "w") as fh:
+        json.dump({"view_shape": [17, 17], "in_channels": 15, "n_gamma": 1,
+                   "num_actions": 9, "time_limit": 12,
+                   "recurrent": recurrent}, fh)
+    policy, view = driver.load_policy(str(tmp_path), device="cpu")
+    assert type(policy.net) is cls and view == (17, 17)
+    assert getattr(policy, "recurrent", False) == recurrent
 
 
 def _in_dir(monkeypatch, path):
