@@ -32,6 +32,16 @@ started from (its rows of it) with no copy taken before the rollout.
 The carry is ``(ring_0, ..., ring_{L-1}, length, head)``, each indexed by
 environment on dim 0.
 
+**Key/value cache.**  The weights do not change inside a rollout, so
+neither do a slot's keys and values.  A step without grad reads them from
+a cache that the core keeps beside the rings (each layer's
+``kv(LN(slot))`` for every slot), projects only the slot it writes, and
+rebuilds the cache where the rings or the projection's weights are not
+the ones it was built from.  The update's replay drops it: in training it
+lives from the rollout's first step to the update.  With the ring's
+projection gone a step is some thousand small launches, so on a card the
+steps after a cache's first replay one CUDA graph of the step.
+
 **Precision.**  The products run in ``dtype`` (bfloat16: float32
 accumulation, bfloat16 results), the layer norms, the softmax (inside
 ``scaled_dot_product_attention``), the gates' sigmoid and tanh and the
@@ -42,6 +52,7 @@ additive bias in ``dtype``.
 """
 
 import math
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -121,21 +132,28 @@ class Layer(nn.Module):
         for layer in (self.q, self.kv, self.r, self.o, self.mlp1, self.mlp2):
             normal_init(layer, 1.0, generator)
 
-    def attend(self, x, src, dist, valid, rel, dtype):
-        """Relative attention of the queries' inputs ``x`` (N, Q, D)
-        float32 over the keys' inputs ``src`` (N, K, D), at distances
-        ``dist`` (N, Q, K) (rows of ``rel``, the encodings), where
-        ``valid`` (N, Q, K).  Returns (N, Q, D) float32."""
-        n, nq, _ = x.shape
-        nk = src.shape[1]
-        h, e = self.heads, self.head_dim
-        q = linear(self.ln1(x), self.q, dtype).view(n, nq, h, e).float()
+    def keys(self, src, dtype):
+        """The keys' and values' projection ``kv(LN(src))`` of the keys'
+        inputs ``src`` (N, K, D): (N, K, 2 * heads * head_dim) in
+        ``dtype``, the keys then the values of each head."""
         # The keys' inputs stay in the memory's dtype: the norm computes
         # its statistics in float32 and applies its weights in that dtype.
         ln = self.ln1
         src = F.layer_norm(src, ln.normalized_shape, ln.weight.to(src.dtype),
                            ln.bias.to(src.dtype), ln.eps)
-        k, v = linear(src, self.kv, dtype).view(n, nk, 2, h, e).unbind(2)
+        return linear(src, self.kv, dtype)
+
+    def attend(self, x, kv, dist, valid, rel, dtype):
+        """Relative attention of the queries' inputs ``x`` (N, Q, D)
+        float32 over the keys' projection ``kv`` (N, K, 2 * heads *
+        head_dim, :meth:`keys`), at distances ``dist`` (N, Q, K) (rows of
+        ``rel``, the encodings), where ``valid`` (N, Q, K).  Returns (N, Q,
+        D) float32."""
+        n, nq, _ = x.shape
+        nk = kv.shape[1]
+        h, e = self.heads, self.head_dim
+        q = linear(self.ln1(x), self.q, dtype).view(n, nq, h, e).float()
+        k, v = kv.view(n, nk, 2, h, e).unbind(2)
         pos = linear(rel, self.r, dtype).view(-1, h, e)
         pos = torch.einsum("nqhe,rhe->nhqr", (q + self.v).to(dtype), pos)
         bias = pos.gather(-1, dist[:, None].expand(n, h, nq, nk))
@@ -148,11 +166,70 @@ class Layer(nn.Module):
         return linear(out, self.o, dtype).float()
 
     def forward(self, x, src, dist, valid, rel, dtype):
-        y = self.gate1(x, torch.relu(self.attend(x, src, dist, valid, rel,
+        """The layer on the queries' inputs ``x`` over the keys' inputs
+        ``src`` (see :meth:`attend`)."""
+        return self.cached(x, self.keys(src, dtype), dist, valid, rel, dtype)
+
+    def cached(self, x, kv, dist, valid, rel, dtype):
+        """The layer over the keys' projection ``kv`` (:meth:`keys`), as
+        the rollout's key/value cache holds it."""
+        y = self.gate1(x, torch.relu(self.attend(x, kv, dist, valid, rel,
                                                  dtype)), dtype)
         mlp = linear(torch.relu(linear(self.ln2(y), self.mlp1, dtype)),
                      self.mlp2, dtype).float()
         return self.gate2(y, torch.relu(mlp), dtype)
+
+
+class KVCache:
+    """The rollout's key/value cache of one carry's rings: ``kv[l]`` is
+    ``layers[l].keys(rings[l])``, (N, slots, 2 * heads * head_dim) in the
+    core's dtype, built in the span ``gtrxl.kv_refresh``.  It is not a
+    buffer: it stays out of the state dict, and a copy of the core leaves
+    it behind.  On a card it also holds one CUDA graph of the cached step
+    on its rings and caches, captured at its second step.  The graph reads
+    the core's weights where they lie, so an optimizer's step in place
+    reaches it; moving the core moves ``ln1`` and ``kv`` too, which
+    rebuilds the cache and so the graph."""
+
+    def __init__(self, core, rings, state):
+        with span("gtrxl.kv_refresh"):
+            self.kv = [layer.keys(ring, core.dtype)
+                       for layer, ring in zip(core.layers, rings)]
+        self.rings = [weakref.ref(ring) for ring in rings]
+        self.state = state  # GTrXL._kv_state after its last step
+        self.steps = 0
+        self.graph = self.inputs = self.outputs = None
+
+    def holds(self, rings, state):
+        """Whether the cache is that of ``rings`` in ``state``."""
+        return self.state == state and all(
+            ref() is ring for ref, ring in zip(self.rings, rings))
+
+    def replay(self, core, x, rings, length, head):
+        """``core._layers`` on the caches as a replay of the graph (its
+        inputs copied in, its outputs copied out); captures the graph
+        first where there is none yet, after an eager step has made any
+        lazy set-up of the step's kernels."""
+        if self.graph is None:
+            self.inputs = (x.clone(), length.clone(), head.clone())
+            stream = torch.cuda.Stream(x.device)
+            stream.wait_stream(torch.cuda.current_stream(x.device))
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                # Thread-local: the trainer's bank refresh may use the
+                # device from its own thread meanwhile.
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    static_x, static_length, static_head = self.inputs
+                    self.outputs = core._layers(static_x, rings, self.kv,
+                                                static_length, static_head)
+                finally:
+                    self.graph.capture_end()
+            torch.cuda.current_stream(x.device).wait_stream(stream)
+        for static, value in zip(self.inputs, (x, length, head)):
+            static.copy_(value)
+        self.graph.replay()
+        return tuple(out.clone() for out in self.outputs)
 
 
 class GTrXL(nn.Module):
@@ -170,6 +247,7 @@ class GTrXL(nn.Module):
         self.register_buffer("rel", sinusoid(memory + 1, d_model),
                              persistent=False)
         self._fill, self._fill_steps = None, 0
+        self._kv = None  # the rollout's KVCache
 
     def initial_carry(self, batch, segment=0):
         """Empty rings with room for a ``segment`` of steps beyond the
@@ -207,22 +285,79 @@ class GTrXL(nn.Module):
         """One step of the acting path on the embedded features ``x`` (N,
         D) float32: writes each layer's input into its ring, attends over
         the ring.  Returns (carry', output (N, D) float32).  The ring holds
-        detached values: the update trains through :meth:`segment`."""
+        detached values: the update trains through :meth:`segment`.
+
+        Without grad the keys and values come from the key/value cache
+        (:class:`KVCache`): the step projects only the slot it writes, and
+        on a card each step after the cache's first replays one CUDA graph
+        of the step.  With grad it projects the whole ring, so that
+        gradients reach the projection."""
         *rings, length, head = carry
+        # Inference tensors keep no version counter for the cache to read.
+        cached = not (torch.is_grad_enabled()
+                      or torch.is_inference_mode_enabled())
+        with span("gtrxl.core"):
+            if not cached:
+                x, length, head = self._layers(x, rings, None, length, head)
+            else:
+                cache = self._kv_cache(rings)
+                if x.is_cuda and cache.steps:
+                    x, length, head = cache.replay(self, x, rings, length,
+                                                   head)
+                else:
+                    x, length, head = self._layers(x, rings, cache.kv,
+                                                   length, head)
+                cache.steps += 1
+                cache.state = self._kv_state(rings)
+        return (*rings, length, head), x
+
+    def _layers(self, x, rings, caches, length, head):
+        """The body of :meth:`step`, keys and values from ``caches`` where
+        given (the slot written also written there), else projected from
+        the whole ring.  Returns (output, length', head')."""
         n, slots = x.shape[0], rings[0].shape[1]
         rows = torch.arange(n, device=x.device)
         age = (head[:, None] - torch.arange(slots, device=x.device)) % slots
         valid = (age <= length[:, None])[:, None]
         dist = age.clamp(max=self.memory)[:, None]
         x = x[:, None]
-        with span("gtrxl.core"):
-            for layer, ring in zip(self.layers, rings):
-                with span("gtrxl.memory"):
-                    ring[rows, head] = x[:, 0].detach().to(ring.dtype)
-                x = layer(x, ring, dist, valid, self.rel, self.dtype)
-        carry = (*rings, (length + 1).clamp(max=self.memory),
-                 (head + 1) % slots)
-        return carry, x[:, 0]
+        for layer, ring, kv in zip(self.layers, rings,
+                                   caches or [None] * len(rings)):
+            new = x.detach().to(ring.dtype)
+            with span("gtrxl.memory"):
+                ring[rows, head] = new[:, 0]
+                if kv is not None:
+                    kv[rows, head] = layer.keys(new, self.dtype)[:, 0]
+            if kv is None:
+                kv = layer.keys(ring, self.dtype)
+            x = layer.cached(x, kv, dist, valid, self.rel, self.dtype)
+        return (x[:, 0], (length + 1).clamp(max=self.memory),
+                (head + 1) % slots)
+
+    def _kv_cache(self, rings):
+        """The :class:`KVCache` of ``rings``, rebuilt where it was built
+        for other rings, where a ring has been written since other than by
+        a step that kept the cache, or where a layer's ``ln1`` or ``kv``
+        parameters have changed (an optimizer's step bumps their version
+        counters): in training, at the rollout's first step, the update's
+        :meth:`segment` having dropped it."""
+        state, cache = self._kv_state(rings), self._kv
+        if cache is not None and cache.holds(rings, state):
+            return cache
+        cache = self._kv = None  # the stale cache goes before the new one
+        self._kv = KVCache(self, rings, state)
+        return self._kv
+
+    def _kv_state(self, rings):
+        """What the key/value cache depends on: the rings and each layer's
+        ``ln1`` and ``kv`` parameters, by storage and version counter."""
+        params = [p for layer in self.layers
+                  for p in (layer.ln1.weight, layer.ln1.bias, layer.kv.weight)]
+        return [(t.data_ptr(), t._version) for t in params + list(rings)]
+
+    def __getstate__(self):
+        """A pickle or a copy leaves the key/value cache behind."""
+        return dict(super().__getstate__(), _kv=None)
 
     def segment(self, x, done, carry0):
         """Replay a segment of embedded features ``x`` (T, M, D) float32
@@ -230,6 +365,9 @@ class GTrXL(nn.Module):
         step: query ``t`` attends to the segment's steps up to ``t`` and to
         the ring's slots ``t + age <= memory`` back, within its episode.
         Returns (T, M, D) float32."""
+        # The update replays before each change of the weights, so the
+        # key/value cache's memory serves its activations instead.
+        self._kv = None
         *rings, length, head = carry0
         steps, m = done.shape
         slots = rings[0].shape[1]

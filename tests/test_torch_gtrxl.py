@@ -12,7 +12,9 @@ through two layers, and the memory rounded once where it is written).
 
 import copy
 import os
+import pickle
 import sys
+import weakref
 
 import pytest
 import torch
@@ -20,7 +22,9 @@ import torch
 from safelife_torch.env.env import BatchedSafeLifeEnv, EnvConfig
 from safelife_torch.levels import synth
 from safelife_torch.training import ppo as P
+from safelife_torch.training.gtrxl import GTrXL
 from safelife_torch.training.model import SafeLifeGTrXLNet
+from safelife_torch.utils import profiling
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -253,6 +257,192 @@ def test_bfloat16_products_against_the_float32_reference():
     net, ref = _pair(torch.bfloat16)
     for _, _, out, rout, _ in _segments(net, ref, 2):
         torch.testing.assert_close(out, rout, **BF16)
+
+
+def _refreshes(spans):
+    return [s for s in spans if s.name == "gtrxl.kv_refresh"]
+
+
+def _features(steps, seed=11):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(steps, B, SMALL["d_model"], generator=gen)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32),
+                                       (torch.bfloat16, BF16)])
+def test_cached_steps_match_the_projecting_path(dtype, tol):
+    """The rollout's steps (no grad: keys and values from the cache, one
+    refresh) against the same core's steps with grad (the whole ring
+    projected each step), 3 segments and their bootstrap steps through a
+    14-slot ring with ``_done``'s resets: the same outputs and rings.
+    The single slot's projection may round apart from the whole ring's
+    (float32 sums in another order), so bfloat16 compares at ``BF16``."""
+    net, _ = _pair(dtype)
+    cached, projecting = net.core, copy.deepcopy(net.core)
+    x, done = _features(3 * (T + 1)), _done(3 * T)
+    carry, pcarry = cached.initial_carry(B, T), projecting.initial_carry(B, T)
+    profiling.clear()
+    with profiling.recording():
+        for s in range(3):
+            for t in range(s * (T + 1), (s + 1) * (T + 1)):
+                with torch.no_grad():
+                    out_carry, out = cached.step(x[t], carry)
+                pout_carry, pout = projecting.step(x[t], pcarry)
+                torch.testing.assert_close(out, pout.detach(), **tol)
+                if t < (s + 1) * (T + 1) - 1:  # not the bootstrap step
+                    d = done[t - s]
+                    carry = cached.reset_carry(out_carry, d)
+                    pcarry = projecting.reset_carry(pout_carry, d)
+    spans = profiling.spans()
+    profiling.clear()
+    assert len(_refreshes(spans)) == 1
+    assert all(s.parent == "gtrxl.core" for s in _refreshes(spans))
+    for ring, pring in zip(carry[:-2], pcarry[:-2]):
+        torch.testing.assert_close(ring, pring, **tol)
+
+
+def _optimizer_step(core, make):
+    gen = torch.Generator().manual_seed(1)
+    opt = make(list(core.parameters()))
+    for p in core.parameters():
+        p.grad = torch.randn(p.shape, generator=gen)
+    opt.step()
+
+
+def _write_ring(core, carry):
+    carry[0][:, :4] += 1.0
+    return carry
+
+
+STALE = {
+    "program_optimizer": lambda core, carry: _optimizer_step(
+        core, lambda params: P.make_optimizer(P.PPOConfig(), params)),
+    "adam_foreach": lambda core, carry: _optimizer_step(
+        core, lambda params: torch.optim.Adam(params, lr=1e-2,
+                                              foreach=True)),
+    "new_carry": lambda core, carry: core.initial_carry(B, T),
+    "ring_written": _write_ring,
+}
+
+
+@pytest.mark.parametrize("change", sorted(STALE))
+def test_the_cache_is_refreshed_where_it_could_be_stale(change):
+    """After 4 cached steps, an optimizer's step on the parameters, a new
+    carry, or a write into a ring from outside the step: the next 3
+    cached steps give, bit for bit, what a copy of the core (which starts
+    with no cache) gives on a copy of the carry, and refresh once."""
+    net, _ = _pair()
+    core, x = net.core, _features(7)
+    carry = core.initial_carry(B, T)
+    with torch.no_grad():
+        for t in range(4):
+            carry, _ = core.step(x[t], carry)
+    with torch.enable_grad():
+        carry = STALE[change](core, carry) or carry
+    fresh = copy.deepcopy(core)
+    fcarry = tuple(c.clone() for c in carry)
+    profiling.clear()
+    with profiling.recording(), torch.no_grad():
+        for t in range(4, 7):
+            carry, out = core.step(x[t], carry)
+            fcarry, want = fresh.step(x[t], fcarry)
+            assert torch.equal(out, want), t
+    refreshes = len(_refreshes(profiling.spans()))
+    profiling.clear()
+    assert refreshes == 2  # the core's and the copy's, each once
+
+
+def test_the_cache_stays_out_of_the_state_dict_and_copies():
+    net, _ = _pair()
+    keys = set(net.state_dict())
+    with torch.no_grad():
+        net(_obs(1)[0], net.initial_carry(B, T))
+    assert net.core._kv is not None
+    assert set(net.state_dict()) == keys
+    assert copy.deepcopy(net).core._kv is None
+    assert pickle.loads(pickle.dumps(net)).core._kv is None
+    held = weakref.ref(net.core._kv.kv[0])
+    del net  # the cache goes with the net
+    assert held() is None
+
+
+def test_a_rollout_refreshes_the_cache_once_a_batch():
+    """Three ``RecurrentPPO.train_batch`` calls of 20 steps (21 with the
+    bootstrap): one refresh each, at the rollout's first step, where the
+    update before it changed the parameters; the update holds no cache."""
+    bank = synth.synth_bank(2, h=13, w=13, device="cpu")
+    env = BatchedSafeLifeEnv(EnvConfig(view_shape=VIEW, time_limit=9),
+                             device="cpu")
+    cfg = P.PPOConfig(steps_per_env=20, num_minibatches=2,
+                      epochs_per_batch=1)
+    gen = torch.Generator().manual_seed(0)
+    net = SafeLifeGTrXLNet(view_shape=VIEW, compute_dtype=torch.float32,
+                           generator=gen, **SMALL)
+    ts = P.init_train_state(cfg, net)
+    state = env.reset_all(bank, 4, gen)
+    obs = env.observe(state)
+    carry = net.initial_carry(4, cfg.steps_per_env)
+    ppo = P.RecurrentPPO(cfg, env)
+    profiling.clear()
+    with profiling.recording():
+        for _ in range(3):
+            state, obs, carry, _ = ppo.train_batch(ts, state, obs, carry,
+                                                   bank, gen)
+    spans = profiling.spans()
+    profiling.clear()
+    rollouts = [s for s in spans if s.name == "ppo.rollout"]
+    steps = [s for s in spans if s.name == "gtrxl.core"
+             and any(r.start_ns <= s.start_ns <= r.end_ns for r in rollouts)]
+    refreshes = _refreshes(spans)
+    assert len(rollouts) == 3 and len(steps) == 3 * 21
+    assert len(refreshes) == 3
+    for r, first in zip(refreshes, steps[::21]):
+        assert first.start_ns <= r.start_ns <= r.end_ns <= first.end_ns
+    assert net.core._kv is None  # the update's replay let it go
+
+
+@pytest.fixture
+def card():
+    """Skips the test where no card is present (decided here, when the
+    test runs, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_the_cached_steps_graph_replays_the_eager_step(card, size):
+    """On the card, two batches of 21 cached steps with ``_done``'s
+    resets, the update's replay and a change of the weights between them:
+    the steps that replay the cache's CUDA graph give, bit for bit, what a
+    copy of the core kept on the eager path gives.  ``small`` wraps its
+    14-slot ring; ``full`` is the configuration's core at 64 envs."""
+    kw, n = (SMALL, B) if size == "small" else ({}, 64)
+    core = GTrXL(**kw, generator=torch.Generator().manual_seed(0)).to(card)
+    eager = copy.deepcopy(core)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2 * (T + 1), n, core.d_model, generator=gen).to(card)
+    done = torch.rand(2 * (T + 1), n, generator=gen).lt(0.1).to(card)
+    carry, ecarry = core.initial_carry(n, T), eager.initial_carry(n, T)
+    with torch.no_grad():
+        for t in range(2 * (T + 1)):
+            carry, out = core.step(x[t], carry)
+            ecarry, want = eager.step(x[t], ecarry)
+            eager._kv.steps = 0  # its next step runs eagerly again
+            assert torch.equal(out, want), t
+            carry = core.reset_carry(carry, done[t])
+            ecarry = eager.reset_carry(ecarry, done[t])
+            if t == T:  # the update: a replay, then new weights
+                assert core._kv.graph is not None
+                for c, cc in ((core, carry), (eager, ecarry)):
+                    c.segment(x[:1, :2], done[:1, :2],
+                              tuple(v[:2] for v in cc))
+                    for p in c.parameters():
+                        p.mul_(1.01)
+    for ring, ering in zip(carry, ecarry):
+        assert torch.equal(ring, ering)
+    assert eager._kv.graph is None
 
 
 def test_the_harness_weights_are_the_nets_state_dict():
