@@ -4,7 +4,8 @@
   opens no record function; ``setup.*`` spans record all the same.
 * Nesting, parents, threads and the bounded buffer.
 * The shared clock: under a CPU ``torch.profiler`` profile each span's
-  host event has the span's name and starts within 100 us of the record.
+  host event has the span's name, starts and ends within a few
+  milliseconds of the record, and is the nearest of the profile's events.
 * A small CPU ``Trainer`` under ``recording()``: ``ppo.train_batch`` holds
   the rollout, GAE and the update, the update its 12 minibatches, and the
   report follows.
@@ -15,6 +16,7 @@ import gc
 import logging
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -23,7 +25,11 @@ from safelife_torch.levels import synth
 from safelife_torch.training import driver, ppo
 from safelife_torch.utils import profiling
 
-CLOCK_US = 100
+# A span's times and its own host event's are two reads of one clock:
+# microseconds apart on an idle box, more on a loaded one.  The probes'
+# events lie GAP_S apart; a wrong clock (time.monotonic_ns) is off by years.
+GAP_S = 0.02
+SLACK_NS = 5_000_000
 
 
 @pytest.fixture(autouse=True)
@@ -162,9 +168,12 @@ def test_spans_share_the_profilers_clock(record_functions):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for i in range(5):
+            time.sleep(GAP_S)
             with profiling.span(f"probe.outer{i}"):
+                time.sleep(GAP_S)
                 with profiling.span(f"probe.inner{i}"):
                     x = x @ x / 64
+                time.sleep(GAP_S)
     with profiling.span("probe.after"):  # the profile has ended
         pass
     mine = {s.name: s for s in profiling.spans()}
@@ -173,10 +182,15 @@ def test_spans_share_the_profilers_clock(record_functions):
     events = {e.name(): e for e in prof.profiler.kineto_results.events()
               if e.name().startswith("probe.")}
     assert set(events) == set(mine)
+
+    def apart(s, e):
+        return max(abs(s.start_ns - e.start_ns()), abs(s.end_ns - e.end_ns()))
     for name, s in mine.items():
         e = events[name]
-        assert abs(s.start_ns - e.start_ns()) < CLOCK_US * 1000, name
-        assert abs(s.end_ns - e.end_ns()) < CLOCK_US * 1000, name
+        assert apart(s, e) < SLACK_NS, (
+            name, s.start_ns - e.start_ns(), s.end_ns - e.end_ns())
+        nearest = min(events, key=lambda n: apart(s, events[n]))
+        assert nearest == name, (name, nearest)
 
 
 def test_phase_timer_records_its_span():
